@@ -7,18 +7,22 @@ Run from the repository root on a machine with a CUDA card (it puts
 non-zero:
 
 1. The card: name and power limit from nvidia-smi.
-2. Build: compile the CUDA kernels from `src/repro_torch/kernels/csrc/`.
+2. Build: compile the CUDA kernels from `src/repro_torch/kernels/csrc/`,
+   one nvcc per source, all started together.
 3. Kernels against their plain PyTorch versions on the card, on the
    full-scale schedules of the main path: K1 (`sptrsv_groups`) on
    lung2_like(1.0) and torso2_like(1.0) under no_rewriting and
    avgLevelCost (main and T-factor preamble schedules) and on a
    carry-bearing banded(4096, 40) schedule; K2 (`sptrsv_groups_multi`)
-   with R in {1, 8, 32}; K3 (`sptrsv_levels`) on the carry schedule.
+   with R in {1, 8, 32}; K3 (`sptrsv_levels`) on the carry schedule;
+   K4 (`spmv_ell`) on spd_from_lower(torso2_like(1.0)) and
+   poisson2d_spd(512, 512) in float32 and float64 (lung2's system is
+   left out: its one 2,143-entry row pads the ELL to 234.6 M slots).
    Each case prints its error, the kernel's time (CUDA events over 50
    launches after warm-up), the plain version's time (5 runs), the time
-   of one `torch.triangular_solve` on the system the schedule solves
-   (cuSPARSE; the yardstick, never called by the port) and the
-   bytes/operations bound.
+   of one cuSPARSE call on the same matrix (`torch.triangular_solve` for
+   K1-K3, a `sparse_csr_tensor` product for K4; the yardstick, never
+   called by the port) and the bytes/operations bound.
 4. Main path: `TriangularOperator.from_csr(L, tune=s)` on the card for
    both matrices and both strategies, then `solve(b)` (refined),
    `solve(b, max_refine=0)`, `solve(B)` for B (n, 8),
@@ -26,7 +30,16 @@ non-zero:
    `device_solve_fn()`, against the float64 oracle of L^T) and
    `device_solve_fn()`, each checked; the
    kernels' launch counts must advance and the plain version's must not.
-5. The kernels line and the contract line.
+5. Preconditioned Krylov path, at full scale: for lung2's and torso2's
+   SPD systems `spd_from_lower(...(1.0), seed=0)`, unpreconditioned `cg`
+   and `cg` with `Preconditioner.ic0` under no_rewriting and
+   avgLevelCost (float64 iterations, float32 sweeps), each checked
+   against scipy's float64 residual, plus a batched (n, 8) `cg`;
+   `bicgstab` and `gmres` with `Preconditioner.ilu0` on a nonsymmetric
+   torso2 system; `kernels.ops.spmv_ell` against scipy's product.  The
+   launch counts of K1, K2 and K4 must advance and the plain versions'
+   must not.
+6. The kernels line and the contract line.
 
 Full results go to chiprun_out/chip_smoke.json.
 """
@@ -55,7 +68,19 @@ ORACLE_RTOL = 5e-4
 REFINE_TOL = 1e-10
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
+H100_F64_FLOPS = 34e12          # float64 outside the tensor cores
 KERNEL_REPS, PLAIN_REPS, LIB_REPS = 50, 5, 20
+# K4 against its plain version, relative to scale: the two sum a row's
+# products in another order (float32 ~1e-7 per row, float64 ~1e-16)
+SPMV_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# ops.spmv_ell (float32) against scipy's float64 product
+SPMV_ORACLE_RTOL = 1e-4
+# Krylov path: the solver's target, and the bound on the true float64
+# relative residual ||b - Ax|| / ||b||: ten times the target, for the gap
+# between CG's recursive residual and the true one under a float32 M^-1
+PCG_TOL, PCG_TRUE_RESID, PCG_MAXITER = 1e-8, 1e-7, 400
+SOLVE_REPS = 5
+DEVICE = "cuda"
 
 
 def log(*args) -> None:
@@ -83,16 +108,57 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+L2_FLUSH_BYTES = 64 << 20          # more than the H100's 50 MB L2
+
+
+def device_profile(fn, reps: int = 1, flush: bool = False) -> dict:
+    """Device time per call of `fn`, kernel by kernel ({name: ms}), from a
+    torch.profiler trace of `reps` calls after one warm-up; empty when the
+    trace shows no device time.  With `flush`, a 64 MB buffer is zeroed
+    before each call, so that `fn` finds the 50 MB L2 cold (the zeroing
+    kernel then appears in the dict under its own name)."""
+    from torch.profiler import ProfilerActivity, profile
+    buf = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if flush
+           else None)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if buf is not None:
+                buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+    return out
+
+
+def kernel_ms(prof: dict, name: str):
+    """ms per call of the kernels whose name holds `name`, or None."""
+    ms = sum(v for k, v in prof.items() if name in k)
+    return ms if ms > 0 else None
+
+
+def top_kernels(prof: dict, k: int = 6) -> list:
+    """The k kernels with the most device time: [[name, ms], ...]."""
+    return [[name[:80], ms] for name, ms in
+            sorted(prof.items(), key=lambda kv: -kv[1])[:k]]
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
 
 
-def csr_torch(indptr, indices, data, n: int) -> torch.Tensor:
+def csr_torch(indptr, indices, data, n: int,
+              dtype=np.float32) -> torch.Tensor:
     return torch.sparse_csr_tensor(
         torch.as_tensor(np.asarray(indptr, dtype=np.int64)),
         torch.as_tensor(np.asarray(indices, dtype=np.int64)),
-        torch.as_tensor(np.asarray(data, dtype=np.float32)),
+        torch.as_tensor(np.asarray(data, dtype=dtype)),
         size=(n, n)).to("cuda")
 
 
@@ -155,12 +221,21 @@ def phase_card() -> dict:
     return {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
 
 
+KERNEL_SOURCES = ("sptrsv_level", "spmv_ell")
+
+
 def phase_build() -> float:
-    from repro_torch.kernels.build import load_library
+    """Build every kernel source in parallel (one nvcc each), then load."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.build import build_library, load_library
     t0 = time.perf_counter()
-    load_library("sptrsv_level")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(build_library, KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        load_library(name)
     secs = time.perf_counter() - t0
-    log(f"build: sptrsv_level.cu in {secs:.3f} s")
+    log(f"build: {', '.join(f'{k}.cu' for k in KERNEL_SOURCES)} in "
+        f"{secs:.3f} s")
     return secs
 
 
@@ -242,6 +317,86 @@ def run_case(kernel: str, case: dict, R: int, rng) -> dict:
     return row
 
 
+def spmv_bound(nnz: int, n: int, itemsize: int) -> tuple:
+    """Least time for one ELL product, from the data the function needs:
+    per real nonzero its int32 index and its value, x read once and y
+    written once (padding slots left out), over the HBM rate, against one
+    FMA per nonzero over the dtype's rate.  Returns (ms, bound_by)."""
+    nbytes = nnz * (4 + itemsize) + 2 * n * itemsize
+    flops = H100_F32_FLOPS if itemsize == 4 else H100_F64_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 2 * nnz / flops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def spmv_library_ms(A, x: torch.Tensor):
+    """One cuSPARSE SpMV of the CSR matrix A by x, or None where the
+    card's PyTorch refuses it."""
+    try:
+        M = csr_torch(A.indptr, A.indices, A.data, A.n_rows,
+                      dtype=np.float32 if x.dtype == torch.float32
+                      else np.float64)
+        xc = x[:, None]
+        torch.sparse.mm(M, xc)
+        torch.cuda.synchronize()
+        return time_ms(lambda: torch.sparse.mm(M, xc), LIB_REPS)
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        log(f"    library yardstick unavailable: {type(e).__name__}: {e}")
+        return None
+
+
+def spmv_cases() -> list:
+    """K4's cases: torso2's SPD system (the PCG path's) and a 2-D Poisson
+    grid; lung2's system is left out (its ELL has 234.6 M slots)."""
+    from repro_torch.sparse import generators
+    return [("spd_from_lower(torso2_like(1.0))",
+             generators.spd_from_lower(generators.torso2_like(1.0), seed=0)),
+            ("poisson2d_spd(512,512)", generators.poisson2d_spd(512, 512))]
+
+
+def run_spmv_case(name: str, A, dtype, rng) -> dict:
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import spmv_ell as S
+    from repro_torch.solver.levelset import pad_rhs
+    idx_np, coef_np, n = ops.ell_pack_csr(A, dtype=dtype)
+    idx = torch.as_tensor(idx_np, device=DEVICE)
+    coef = torch.as_tensor(coef_np, device=DEVICE)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=coef.dtype,
+                        device=DEVICE)
+    x_pad = pad_rhs(x)
+    call = lambda: S.spmv_ell(idx, coef, x_pad)
+    y = call()
+    torch.cuda.synchronize()
+    plain = lambda: ref.spmv_ell_ref(idx, coef, x_pad)
+    diff, rel = rel_err(y, plain())
+    tol = SPMV_RTOL[coef.dtype]
+    check(bool(torch.isfinite(y).all()) and rel <= tol,
+          f"spmv_ell on {name} {coef.dtype}: relative error {rel:.3e} > "
+          f"{tol:.0e}")
+    ms = time_ms(call, KERNEL_REPS)
+    device_ms = kernel_ms(device_profile(call, KERNEL_REPS),
+                          "spmv_ell_kernel")
+    cold_ms = kernel_ms(device_profile(call, KERNEL_REPS, flush=True),
+                        "spmv_ell_kernel")
+    plain_ms = time_ms(plain, PLAIN_REPS, warmup=1)
+    bound_ms, bound_by = spmv_bound(A.nnz, n, coef.element_size())
+    lib = spmv_library_ms(A, x)
+    dt = str(coef.dtype).replace("torch.", "")
+    row = {"kernel": "spmv_ell", "case": f"{name}/{dt}", "R": 1, "n": n,
+           "nnz": A.nnz, "D": int(idx.shape[1]),
+           "ell_slots": int(idx.numel()), "fill": A.nnz / idx.numel(),
+           "max_abs_err": diff, "max_rel_err": rel, "ms": ms,
+           "kernel_device_ms": device_ms,
+           "kernel_device_ms_cold_l2": cold_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+    log(f"  spmv_ell             {row['case']:42s} D={row['D']:<3d} "
+        f"err={rel:.2e} ms={ms:.4f} device_ms={device_ms} "
+        f"cold_l2_ms={cold_ms} "
+        f"plain_ms={plain_ms:.3f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}) library_ms={lib}")
+    return row
+
+
 def phase_kernels(rng) -> list:
     cases = build_cases()
     by_name = {c["name"]: c for c in cases}
@@ -254,6 +409,9 @@ def phase_kernels(rng) -> list:
                                  rng))
     rows.append(run_case("sptrsv_levels",
                          by_name["banded(4096,40)/max_deps=4"], 1, rng))
+    for name, A in spmv_cases():
+        for dtype in (np.float32, np.float64):
+            rows.append(run_spmv_case(name, A, dtype, rng))
     return rows
 
 
@@ -357,31 +515,218 @@ def phase_main_path(rng) -> tuple:
     return rows, counts
 
 
-def kernels_line(krows: list, counts: dict) -> dict:
-    """One entry per ported kernel, its timings at a main-path shape."""
+def true_residual(A, x: torch.Tensor, b: np.ndarray) -> float:
+    """||b - A x||_2 / ||b||_2 per column (the largest), in float64 on the
+    host with scipy."""
+    import scipy.sparse as sp
+    M = sp.csr_matrix((np.asarray(A.data, dtype=np.float64), A.indices,
+                       A.indptr), shape=A.shape)
+    xs = x.double().cpu().numpy()
+    r = b - M @ xs
+    return float(np.max(np.linalg.norm(r, axis=0) /
+                        np.linalg.norm(b, axis=0)))
+
+
+def nonsymmetric(A, seed: int = 7):
+    """tests/test_iterative.py's recipe on A's pattern: values +
+    0.25 U(-1, 1)."""
+    from repro_torch.sparse.csr import CSR
+    rng = np.random.default_rng(seed)
+    return CSR(indptr=A.indptr, indices=A.indices,
+               data=A.data + 0.25 * rng.uniform(-1, 1, A.nnz),
+               shape=A.shape)
+
+
+def median_solve_s(solve) -> float:
+    """Median host seconds of SOLVE_REPS synchronized solves, after one
+    warm-up."""
+    solve()
+    times = []
+    for _ in range(SOLVE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def phase_pcg(rng, scale: float = 1.0) -> tuple:
+    """The preconditioned Krylov path on the card (module doc, phase 5).
+    Returns (rows, launch counts of this path)."""
+    from repro_torch.iterative import bicgstab, cg, device_matvec, gmres
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
-    here = "src/repro_torch/kernels/csrc/sptrsv_level.cu"
+    from repro_torch.precond import Preconditioner, factorize
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.sparse import generators
+    systems = {m: generators.spd_from_lower(getattr(generators, m)(scale),
+                                            seed=0)
+               for m in ("lung2_like", "torso2_like")}
+    TriangularOperator.clear_memory_cache()
+    K.reset_launch_counts()
+    S.reset_launch_counts()
+    rows = []
+    for mat, A in systems.items():
+        n = A.n_rows
+        x_true = rng.standard_normal(n)
+        b_np = A.matvec(x_true)
+        b = torch.as_tensor(b_np, device=DEVICE)            # float64
+        t0 = time.perf_counter()
+        base = cg(A, b, tol=PCG_TOL, maxiter=PCG_MAXITER)
+        torch.cuda.synchronize()
+        base_s = time.perf_counter() - t0
+        base_iters = int(base.iterations)
+        mv = device_matvec(A)
+        matvec_ms = time_ms(lambda: mv(b), KERNEL_REPS)
+        t0 = time.perf_counter()
+        fac = factorize.ic0(A)
+        ic0_s = time.perf_counter() - t0
+        B_np = rng.standard_normal((n, 8))
+        B = torch.as_tensor(B_np, device=DEVICE)
+        for strat in ("no_rewriting", "avgLevelCost"):
+            t0 = time.perf_counter()
+            P = Preconditioner.from_factors(fac, tune=strat)
+            build_s = time.perf_counter() - t0
+            check(P.device.type == "cuda" and P.forward.engine == "cuda"
+                  and P.backward.engine == "cuda",
+                  f"preconditioner on {P.device} / {P.forward.engine}")
+            res = cg(A, b, preconditioner=P, tol=PCG_TOL,
+                     maxiter=PCG_MAXITER)
+            iters = int(res.iterations)
+            resid = true_residual(A, res.x, b_np)
+            err = float((res.x.cpu() - torch.as_tensor(x_true)).abs().max())
+            check(bool(res.converged) and resid <= PCG_TRUE_RESID,
+                  f"PCG on {mat}/{strat}: converged={bool(res.converged)} "
+                  f"after {iters}, true residual {resid:.3e}")
+            check(iters < base_iters, f"PCG on {mat}/{strat}: {iters} "
+                  f"iterations, plain CG {base_iters}")
+            resB = cg(A, B, preconditioner=P, tol=PCG_TOL,
+                      maxiter=PCG_MAXITER)
+            residB = true_residual(A, resB.x, B_np)
+            check(bool(resB.converged.all()) and residB <= PCG_TRUE_RESID,
+                  f"batched PCG on {mat}/{strat}: converged "
+                  f"{resB.converged.tolist()}, true residual {residB:.3e}")
+            solve_ms = 1e3 * median_solve_s(
+                lambda: cg(A, b, preconditioner=P, tol=PCG_TOL,
+                           maxiter=PCG_MAXITER))
+            # the same solve with the matvec staged once (cg(A, ...) stages
+            # the CSR arrays at every call), and the device's busy share
+            # of it from a profiler trace
+            staged = lambda: cg(mv, b, preconditioner=P, tol=PCG_TOL,
+                                maxiter=PCG_MAXITER)
+            staged_ms = 1e3 * median_solve_s(staged)
+            prof = device_profile(staged)
+            busy_ms = sum(prof.values()) if prof else None
+            apply = P.device_apply()
+            apply_ms = time_ms(lambda: apply(b), 20)
+            row = {"case": f"spd_from_lower({mat}({scale}))/ic0/{strat}",
+                   "n": n, "nnz": A.nnz, "shift": fac.shift,
+                   "plain_cg_iterations": base_iters,
+                   "plain_cg_converged": bool(base.converged),
+                   "plain_cg_s": base_s, "pcg_iterations": iters,
+                   "pcg_true_residual": resid, "pcg_max_err": err,
+                   "batched_iterations": resB.iterations.tolist(),
+                   "batched_true_residual": residB,
+                   "ms_per_solve": solve_ms,
+                   "ms_per_solve_staged_matvec": staged_ms,
+                   "device_busy_ms_staged": busy_ms,
+                   "device_kernels_staged": top_kernels(prof),
+                   "ms_per_apply": apply_ms,
+                   "ms_per_matvec": matvec_ms, "host_ic0_s": ic0_s,
+                   "host_from_factors_s": build_s,
+                   "steps": [P.forward.schedule.num_steps,
+                             P.backward.schedule.num_steps]}
+            rows.append(row)
+            log(f"  {row['case']:48s} cg={base_iters} pcg={iters} "
+                f"resid={resid:.2e} batched={row['batched_iterations']} "
+                f"ms/solve={solve_ms:.3f} staged={staged_ms:.3f} "
+                f"busy_ms={busy_ms} ms/apply={apply_ms:.4f} "
+                f"ms/matvec={matvec_ms:.4f} ic0_s={ic0_s:.2f} "
+                f"from_factors_s={build_s:.2f}")
+    # ILU(0) on a nonsymmetric torso2 system: bicgstab and gmres
+    N = nonsymmetric(systems["torso2_like"])
+    x_true = rng.standard_normal(N.n_rows)
+    bn_np = N.matvec(x_true)
+    bn = torch.as_tensor(bn_np, device=DEVICE)
+    t0 = time.perf_counter()
+    Pn = Preconditioner.ilu0(N, tune="no_rewriting")
+    ilu_s = time.perf_counter() - t0
+    for solver, kw in ((bicgstab, {"maxiter": PCG_MAXITER}),
+                       (gmres, {"restart": 30, "maxiter": 20})):
+        t0 = time.perf_counter()
+        res = solver(N, bn, preconditioner=Pn, tol=PCG_TOL, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        resid = true_residual(N, res.x, bn_np)
+        check(bool(res.converged),
+              f"ILU(0)-{solver.__name__} on nonsymmetric torso2 did not "
+              f"converge in {int(res.iterations)} iterations")
+        row = {"case": f"nonsymmetric(torso2_like({scale}))/ilu0/"
+                       f"no_rewriting/{solver.__name__}",
+               "n": N.n_rows, "shift": Pn.factors.shift,
+               "iterations": int(res.iterations), "true_residual": resid,
+               "solve_s": secs, "host_ilu0_and_build_s": ilu_s}
+        rows.append(row)
+        log(f"  {row['case']:48s} iterations={row['iterations']} "
+            f"true_resid={resid:.2e} solve_s={secs:.3f} "
+            f"ilu0+build_s={ilu_s:.2f}")
+    # the ELL entry point on the card against scipy's float64 product
+    import scipy.sparse as sp
+    A = systems["torso2_like"]
+    x = rng.standard_normal(A.n_rows)
+    y = ops.spmv_ell(A, x)
+    y_ref = sp.csr_matrix((A.data, A.indices, A.indptr), shape=A.shape) @ x
+    rel = float(np.abs(y - y_ref).max()) / max(1.0, float(np.abs(y_ref).max()))
+    check(rel <= SPMV_ORACLE_RTOL, f"ops.spmv_ell error {rel:.3e}")
+    rows.append({"case": "ops.spmv_ell(spd_from_lower(torso2_like"
+                         f"({scale})))", "rel_err_vs_scipy": rel})
+    log(f"  ops.spmv_ell on torso2's system: error {rel:.2e} vs scipy")
+    counts = dict(K.LAUNCHES, spmv_ell=S.LAUNCHES["spmv_ell"],
+                  plain_spmv_ell=S.LAUNCHES["plain"])
+    log(f"  launches on the Krylov path: {counts}")
+    check(counts["sptrsv_groups"] > 0 and counts["sptrsv_groups_multi"] > 0
+          and counts["spmv_ell"] > 0,
+          f"a kernel of the Krylov path was never launched: {counts}")
+    check(counts["plain"] == 0 and counts["plain_spmv_ell"] == 0,
+          f"a plain version ran on the Krylov path: {counts}")
+    return rows, counts
+
+
+def kernels_line(krows: list, counts: dict, pcg_counts: dict) -> dict:
+    """One entry per ported kernel, its timings at a main-path shape; its
+    launches summed over the two main paths (phases 4 and 5)."""
+    from repro_torch.kernels import spmv_ell as S
+    from repro_torch.kernels import sptrsv_level as K
+    here = "src/repro_torch/kernels/csrc/"
     spec = [
-        ("sptrsv_groups", 1, "lung2_like(1.0)/no_rewriting",
-         "src/repro/kernels/sptrsv_level.py:98"),
-        ("sptrsv_groups_multi", 8, "lung2_like(1.0)/no_rewriting",
+        ("sptrsv_groups", "sptrsv_level.cu", "lung2_like(1.0)/no_rewriting",
+         1, "src/repro/kernels/sptrsv_level.py:98"),
+        ("sptrsv_groups_multi", "sptrsv_level.cu",
+         "lung2_like(1.0)/no_rewriting", 8,
          "src/repro/kernels/sptrsv_level.py:149"),
-        ("sptrsv_levels", 1, "banded(4096,40)/max_deps=4",
+        ("sptrsv_levels", "sptrsv_level.cu", "banded(4096,40)/max_deps=4", 1,
          "src/repro/kernels/sptrsv_level.py:205"),
+        ("spmv_ell", "spmv_ell.cu",
+         "spd_from_lower(torso2_like(1.0))/float32", 1,
+         "src/repro/kernels/spmv_ell.py:32"),
     ]
     out = []
-    for name, R, case, replaces in spec:
+    for name, src, case, R, replaces in spec:
         rep = next(r for r in krows if r["kernel"] == name
                    and r["case"] == case and r["R"] == R)
-        out.append({"name": name, "route": "cuda", "source": here,
-                    "replaces": replaces, "launches": counts[name],
+        out.append({"name": name, "route": "cuda", "source": here + src,
+                    "replaces": replaces,
+                    "launches": counts.get(name, 0) + pcg_counts[name],
                     "max_abs_err": max(r["max_abs_err"] for r in krows
                                        if r["kernel"] == name),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"],
                     "bound_by": rep["bound_by"],
                     "library_ms": rep["library_ms"]})
-    assert set(K.LAUNCHES) - {"plain"} == {e["name"] for e in out}
+    assert (set(K.LAUNCHES) | set(S.LAUNCHES)) - {"plain"} == \
+        {e["name"] for e in out}
     return {"kernels": out}
 
 
@@ -400,12 +745,15 @@ def main() -> int:
     krows = phase_kernels(rng)
     log("== 4. main path")
     mrows, counts = phase_main_path(rng)
-    line = kernels_line(krows, counts)
+    log("== 5. preconditioned Krylov path")
+    prows, pcg_counts = phase_pcg(rng)
+    line = kernels_line(krows, counts, pcg_counts)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": krows,
-         "main_path": mrows, "launches": counts, "kernels_line": line,
+         "main_path": mrows, "launches": counts, "krylov_path": prows,
+         "krylov_launches": pcg_counts, "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(card["nvidia_smi"])

@@ -7,5 +7,5 @@ from .strategies import (AvgLevelCost, ConstrainedAvgLevelCost,
 from .transform import TransformMetrics, TransformedSystem, transform
 from .portfolio import STRATEGY_REGISTRY, make_strategy
 from .resilience import (HealthPolicy, NumericalHealthError,
-                         PatternMismatchError, ResilienceError, SolveGuard,
-                         resolve_health_policy)
+                         PatternMismatchError, ResilienceError, RetryPolicy,
+                         SolveGuard, resolve_health_policy)

@@ -2,10 +2,11 @@
 the `SolveGuard` that enforces it.
 
 Copy of the parts of `repro.core.resilience` that the port's operator
-uses.  The port's solve never repairs and never walks a fallback chain:
-an unhealthy solve raises (the repair/fallback actions, engine fallback
-chains, the cache quarantine and `RetryPolicy` are still to be ported,
-see ROADMAP.md).
+and factorizations use.  The port's solve never repairs and never walks a
+fallback chain: an unhealthy solve raises (the repair/fallback actions,
+engine fallback chains and the cache quarantine are still to be ported,
+see ROADMAP.md).  `RetryPolicy` is the geometric-backoff ladder of the
+diagonal-shift retries in `precond.factorize`.
 
 Error taxonomy
 ==============
@@ -35,7 +36,8 @@ import os
 import numpy as np
 
 __all__ = ["ResilienceError", "NumericalHealthError", "PatternMismatchError",
-           "HealthPolicy", "SolveGuard", "resolve_health_policy"]
+           "HealthPolicy", "SolveGuard", "resolve_health_policy",
+           "RetryPolicy"]
 
 
 # -- error taxonomy -----------------------------------------------------------
@@ -171,3 +173,51 @@ class SolveGuard:
             return (f"relative residual {resid:.3e} exceeds "
                     f"{self.policy.residual_tol:.1e}")
         return None
+
+
+# -- declarative retry --------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Geometric-backoff retry shared by the flaky host-side paths.
+
+    One attempt runs with parameter 0.0; each retry grows the parameter
+    geometrically from `scale0` (Manteuffel diagonal shifts in
+    `precond.factorize`, where the parameter is the shift alpha — but the
+    policy is payload-agnostic: any `attempt(param)` callable works).
+
+    max_attempts: retries after the first attempt (0 = no retry; the
+                  first failure propagates).
+    scale0:       parameter of the first retry.
+    growth:       multiplier per further retry.
+    """
+
+    max_attempts: int = 20
+    scale0: float = 1e-3
+    growth: float = 2.0
+
+    def params(self):
+        """0.0, scale0, scale0*growth, ... — max_attempts + 1 values."""
+        yield 0.0
+        p = self.scale0
+        for _ in range(self.max_attempts):
+            yield p
+            p *= self.growth
+
+    def run(self, attempt, *, retry_on: tuple = (Exception,)):
+        """Run `attempt(param)` over the parameter ladder.
+
+        Returns (result, param, attempts) on the first success; re-raises
+        the last `retry_on` exception when the ladder is exhausted.  Other
+        exception types propagate immediately.
+        """
+        attempts = 0
+        last = None
+        for param in self.params():
+            attempts += 1
+            try:
+                return attempt(param), param, attempts
+            except retry_on as e:
+                last = e
+        raise last

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the SpTRSV kernels (numerics ground truth).
+"""Plain PyTorch versions of the kernels (numerics ground truth).
 
 Port of `repro.kernels.ref` (`sptrsv_levels_grouped_ref`,
-`sptrsv_levels_ref`).  The CPU tests run these, and `chip_smoke.py` holds
-the CUDA kernels of `kernels/sptrsv_level.py` against them on the card.
+`sptrsv_levels_ref`, `spmv_ell_ref`).  The CPU tests run these, and
+`chip_smoke.py` holds the CUDA kernels of `kernels/sptrsv_level.py` and
+`kernels/spmv_ell.py` against them on the card.
 """
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import torch
 
 from ..solver.levelset import solve_levels
 
-__all__ = ["sptrsv_levels_ref", "sptrsv_levels_grouped_ref"]
+__all__ = ["sptrsv_levels_ref", "sptrsv_levels_grouped_ref",
+           "spmv_ell_ref"]
 
 
 def sptrsv_levels_grouped_ref(groups, c_pad: torch.Tensor, n: int,
@@ -34,3 +36,14 @@ def sptrsv_levels_ref(row_ids, dep_idx, dep_coef, dinv, carry_in, carry_out,
     del c_ids
     group = (row_ids, dep_idx, dep_coef, dinv, carry_in, carry_out)
     return sptrsv_levels_grouped_ref((group,), c_pad, n=n, n_carry=n_carry)
+
+
+def spmv_ell_ref(ell_idx: torch.Tensor, ell_coef: torch.Tensor,
+                 x_pad: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for ELL-packed A.
+
+    ell_idx (n_pad, D) int32 (padding -> len(x_pad)-1), ell_coef (n_pad, D)
+    float, x_pad (n+1,) float with a zero last entry.  Returns y (n_pad,)
+    in ell_coef's dtype.
+    """
+    return (ell_coef * x_pad.to(ell_coef.dtype)[ell_idx.long()]).sum(-1)
