@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweep] [--ab DIR ...]
 
 Run from the repository root on a machine with a CUDA card (it puts
 `src/` on `sys.path` itself).  Phases, in order; any failure exits
@@ -12,9 +12,12 @@ non-zero:
 3. Kernels against their plain PyTorch versions on the card, on the
    full-scale schedules of the main path: K1 (`sptrsv_groups`) on
    lung2_like(1.0) and torso2_like(1.0) under no_rewriting and
-   avgLevelCost (main and T-factor preamble schedules) and on a
-   carry-bearing banded(4096, 40) schedule; K2 (`sptrsv_groups_multi`)
-   with R in {1, 8, 32}; K3 (`sptrsv_levels`) on the carry schedule;
+   avgLevelCost (main and T-factor preamble schedules), on the backward
+   (L^T) IC(0) factors of their SPD systems (lung2's has rows of up to
+   2,142 entries, 2,717 schedule steps), on a carry-bearing
+   banded(4096, 40) schedule and on an arrow matrix whose row of 20,000
+   entries is longer than a tile holds; K2 (`sptrsv_groups_multi`) with R in
+   {1, 8, 32}; K3 (`sptrsv_levels`) on the carry schedule;
    K4 (`spmv_ell`) on spd_from_lower(torso2_like(1.0)) and
    poisson2d_spd(512, 512) in float32 and float64 (lung2's system is
    left out: its one 2,143-entry row pads the ELL to 234.6 M slots).
@@ -22,7 +25,10 @@ non-zero:
    launches after warm-up), the plain version's time (5 runs), the time
    of one cuSPARSE call on the same matrix (`torch.triangular_solve` for
    K1-K3, a `sparse_csr_tensor` product for K4; the yardstick, never
-   called by the port) and the bytes/operations bound.
+   called by the port) and the bytes/operations bound, and for K1 the
+   schedule's steps before and after the packing re-levels it (which
+   must equal the DAG's level count), the widest step, the long lanes,
+   µs per step and the packing's host seconds.
 4. Main path: `TriangularOperator.from_csr(L, tune=s)` on the card for
    both matrices and both strategies, then `solve(b)` (refined),
    `solve(b, max_refine=0)`, `solve(B)` for B (n, 8),
@@ -41,7 +47,13 @@ non-zero:
    must not.
 6. The kernels line and the contract line.
 
-Full results go to chiprun_out/chip_smoke.json.
+Full results go to chiprun_out/chip_smoke.json.  With `--sweep` or
+`--ab`, phases 3-6 give way to studies of the SpTRSV kernel on lung2's
+and torso2's L and IC(0) L^T (R = 1, 8), written to
+chiprun_out/chip_smoke_study.json: `--sweep` times it at every consumer
+count and fits `ROUND_WARPS`, the ratio from which the wrapper sizes the
+block; `--ab DIR ...` times the kernel of other checkouts (another
+commit, or a variant of this one) beside this one's.
 """
 from __future__ import annotations
 
@@ -79,6 +91,7 @@ SPMV_ORACLE_RTOL = 1e-4
 # relative residual ||b - Ax|| / ||b||: ten times the target, for the gap
 # between CG's recursive residual and the true one under a float32 M^-1
 PCG_TOL, PCG_TRUE_RESID, PCG_MAXITER = 1e-8, 1e-7, 400
+ARROW_K = 20000
 SOLVE_REPS = 5
 DEVICE = "cuda"
 
@@ -172,6 +185,20 @@ def lower_with_diag(A, diag):
     return from_coo(rows, cols, vals, A.shape)
 
 
+def dag_levels(M) -> int:
+    """Level count of the DAG a float32 schedule of M solves: entries that
+    round to 0 in float32 hold no dependency there (lung2's avgLevelCost
+    system has 526 values below 1e-45, and 4 levels instead of 7)."""
+    from repro_torch.sparse.csr import CSR
+    from repro_torch.sparse.levels import build_levels
+    keep = np.asarray(M.data, dtype=np.float32) != 0
+    rows = np.repeat(np.arange(M.n_rows), M.row_nnz())[keep]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        rows, minlength=M.n_rows))])
+    return build_levels(CSR(indptr=indptr, indices=M.indices[keep],
+                            data=M.data[keep], shape=M.shape)).num_levels
+
+
 def library_ms(M, R: int):
     """One cuSPARSE triangular solve of the lower CSR matrix M on (n, R)
     right-hand sides, or None where the card's PyTorch refuses it."""
@@ -192,19 +219,14 @@ def library_ms(M, R: int):
 def bound(packed, R: int) -> tuple:
     """Least time for the work of one solve, from the data the function
     needs: per finished row its row index and 1/diag; per real dependency
-    its index and coefficient; a carry slot only for lanes that read or
-    write one; c read once and x written once (n x R float32 each).
-    Padding and the packing's offset arrays are left out.  Bytes over the
-    HBM rate against the operations (an FMA per dependency, a subtract and
-    a multiply per finished row, an add per carry read) over the float32
-    rate.  Returns (ms, "bytes" | "operations")."""
-    n, nc = packed.n, packed.n_carry
-    rows = int((packed.lane_row < n).sum())
-    cin = int((packed.lane_cin != nc).sum())
-    cout = int((packed.lane_cout < nc).sum())
-    deps = packed.num_deps
-    nbytes = 8 * rows + 8 * deps + 4 * (cin + cout) + 2 * n * R * 4
-    ops = R * (2 * deps + 2 * rows + cin)
+    its index and coefficient; c read once and x written once (n x R
+    float32 each).  Padding and the tiles' headers and offsets are left
+    out.  Bytes over the HBM rate against the operations (an FMA per
+    dependency, a subtract and a multiply per finished row) over the
+    float32 rate.  Returns (ms, "bytes" | "operations")."""
+    n, rows, deps = packed.n, packed.num_lanes, packed.num_deps
+    nbytes = 8 * rows + 8 * deps + 2 * n * R * 4
+    ops = R * (2 * deps + 2 * rows)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -243,6 +265,8 @@ def build_cases():
     """Full-scale schedules of the main path, plus the carry schedule."""
     from repro_torch.core.portfolio import make_strategy
     from repro_torch.core.transform import transform
+    from repro_torch.precond import factorize
+    from repro_torch.solver.operator import orient_lower
     from repro_torch.solver.schedule import (schedule_for_csr,
                                              schedule_for_preamble,
                                              schedule_for_transformed)
@@ -260,11 +284,37 @@ def build_cases():
             if psched is not None:
                 cases.append({"name": f"{mat}(1.0)/{strat}/preamble",
                               "sched": psched, "lib": None})
+        # IC(0)'s backward sweep: L^T of the SPD system's factor, reversed
+        fac = factorize.ic0(generators.spd_from_lower(L, seed=0))
+        Lt = orient_lower(fac.L, "lower", True)[0]
+        cases.append({"name": f"{mat}(1.0)/ic0/L^T",
+                      "sched": schedule_for_csr(Lt, build_levels(Lt)),
+                      "lib": Lt})
     B = generators.banded(4096, 40)
     cases.append({"name": "banded(4096,40)/max_deps=4",
                   "sched": schedule_for_csr(B, build_levels(B), max_deps=4),
                   "lib": B})
+    W = arrow(ARROW_K)
+    cases.append({"name": f"arrow({ARROW_K})",
+                  "sched": schedule_for_csr(W, build_levels(W)), "lib": W})
     return cases
+
+
+def arrow(k: int, seed: int = SEED):
+    """Lower-triangular arrow of k + 2 rows: rows 0..k-1 hold only their
+    diagonal, row k reads all of them (more deps than a ring stage holds:
+    the kernel streams them from device memory), row k + 1 reads row k and
+    every 97th of the first k."""
+    from repro_torch.sparse.csr import from_coo
+    rng = np.random.default_rng(seed)
+    tail = np.arange(0, k, 97)
+    rows = np.concatenate([np.full(k, k), np.full(tail.size + 1, k + 1)])
+    cols = np.concatenate([np.arange(k), tail, [k]])
+    vals = rng.uniform(-1, 1, rows.size) / np.sqrt(k)
+    n = k + 2
+    return from_coo(np.concatenate([rows, np.arange(n)]),
+                    np.concatenate([cols, np.arange(n)]),
+                    np.concatenate([vals, 1 + rng.random(n)]), (n, n))
 
 
 def run_case(kernel: str, case: dict, R: int, rng) -> dict:
@@ -302,17 +352,28 @@ def run_case(kernel: str, case: dict, R: int, rng) -> dict:
     plain_ms = time_ms(plain, PLAIN_REPS, warmup=1)
     bound_ms, bound_by = bound(packed, R)
     lib = library_ms(case["lib"], R)
+    levels = (dag_levels(case["lib"]) if case["lib"] is not None else None)
+    check(levels is None or packed.num_steps == levels,
+          f"{case['name']}: {packed.num_steps} packed steps, the DAG has "
+          f"{levels} levels")
     row = {"kernel": kernel, "case": case["name"], "R": R,
-           "steps": sched.num_steps, "lanes": packed.num_lanes,
-           "deps": packed.num_deps, "groups": [
-               [g.lanes, g.width] for g in sched.groups],
+           "schedule_steps": sched.num_steps, "steps": packed.num_steps,
+           "dag_levels": levels, "widest_step": packed.widest_step,
+           "long_lanes": packed.long_lanes, "free_rows": packed.num_free,
+           "tiles": packed.num_tiles, "stage_bytes": packed.stage_bytes,
+           "stages": packed.num_stages, "pack_s": packed.pack_s,
+           "lanes": packed.num_lanes, "deps": packed.num_deps,
+           "groups": [[g.lanes, g.width] for g in sched.groups],
            "schedule_MB": sched.memory_bytes() / 1e6,
            "packed_MB": packed.nbytes() / 1e6, "max_abs_err": diff,
            "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
-           "us_per_step": ms * 1e3 / max(sched.num_steps, 1)}
-    log(f"  {kernel:20s} {case['name']:42s} R={R:<3d} steps={row['steps']:5d}"
-        f" err={rel:.2e} ms={ms:.4f} plain_ms={plain_ms:.3f} "
+           "us_per_step": ms * 1e3 / max(packed.num_steps, 1)}
+    log(f"  {kernel:20s} {case['name']:42s} R={R:<3d} steps="
+        f"{sched.num_steps}->{packed.num_steps} widest={packed.widest_step} "
+        f"long={packed.long_lanes} free={packed.num_free} "
+        f"pack_s={packed.pack_s:.3f} err={rel:.2e} ms={ms:.4f} "
+        f"us/step={row['us_per_step']:.3f} plain_ms={plain_ms:.3f} "
         f"bound_ms={bound_ms:.5f} ({bound_by}) library_ms={lib}")
     return row
 
@@ -397,7 +458,7 @@ def run_spmv_case(name: str, A, dtype, rng) -> dict:
     return row
 
 
-def phase_kernels(rng) -> list:
+def phase_kernels(rng) -> tuple:
     cases = build_cases()
     by_name = {c["name"]: c for c in cases}
     rows = [run_case("sptrsv_groups", c, 1, rng) for c in cases]
@@ -487,10 +548,17 @@ def phase_main_path(rng) -> tuple:
                   f"device_solve_fn error {errd:.3e}")
             sweep_ms = time_ms(lambda: fn(bt), 20)
             psched = op._preamble_host()[0]
+            pre = op._preamble_staged()[0]
             row = {"case": f"{mat}(1.0)/{strat}", "n": n, "nnz": L.nnz,
-                   "steps": op.schedule.num_steps,
-                   "preamble_steps": (psched.num_steps if psched is not None
-                                      else 0),
+                   "schedule_steps": op.schedule.num_steps,
+                   "steps": op._staged().packed().num_steps,
+                   "preamble_schedule_steps": (psched.num_steps
+                                               if psched is not None else 0),
+                   "preamble_steps": (pre.packed().num_steps
+                                      if pre is not None else 0),
+                   "pack_s": op._staged().packed().pack_s + (
+                       pre.packed().pack_s if pre is not None else 0.0),
+                   "transposed_steps": opT._staged().packed().num_steps,
                    "host_build_s": build_s, "solve_refined_s": solve_s,
                    "refine_rounds": rounds,
                    "residual": resid, "residual_batched": residB,
@@ -500,9 +568,12 @@ def phase_main_path(rng) -> tuple:
                    "err_transposed_device_solve_fn": errTd,
                    "device_sweep_ms": sweep_ms}
             rows.append(row)
-            log(f"  {row['case']:30s} n={n} steps={row['steps']} "
-                f"preamble_steps={row['preamble_steps']} "
-                f"build_s={build_s:.2f} resid={resid:.2e} "
+            log(f"  {row['case']:30s} n={n} steps="
+                f"{row['schedule_steps']}->{row['steps']} preamble_steps="
+                f"{row['preamble_schedule_steps']}->{row['preamble_steps']} "
+                f"L^T steps={row['transposed_steps']} "
+                f"build_s={build_s:.2f} pack_s={row['pack_s']:.3f} "
+                f"resid={resid:.2e} "
                 f"residB={residB:.2e} residT={residT:.2e} err0={err0:.2e} "
                 f"err_dev={errd:.2e} errT0={errT0:.2e} errT_dev={errTd:.2e} "
                 f"sweep_ms={sweep_ms:.4f}")
@@ -636,15 +707,20 @@ def phase_pcg(rng, scale: float = 1.0) -> tuple:
                    "ms_per_apply": apply_ms,
                    "ms_per_matvec": matvec_ms, "host_ic0_s": ic0_s,
                    "host_from_factors_s": build_s,
-                   "steps": [P.forward.schedule.num_steps,
-                             P.backward.schedule.num_steps]}
+                   "schedule_steps": [P.forward.schedule.num_steps,
+                                      P.backward.schedule.num_steps],
+                   "steps": [op._staged().packed().num_steps
+                             for op in (P.forward, P.backward)],
+                   "pack_s": sum(op._staged().packed().pack_s
+                                 for op in (P.forward, P.backward))}
             rows.append(row)
             log(f"  {row['case']:48s} cg={base_iters} pcg={iters} "
                 f"resid={resid:.2e} batched={row['batched_iterations']} "
                 f"ms/solve={solve_ms:.3f} staged={staged_ms:.3f} "
                 f"busy_ms={busy_ms} ms/apply={apply_ms:.4f} "
                 f"ms/matvec={matvec_ms:.4f} ic0_s={ic0_s:.2f} "
-                f"from_factors_s={build_s:.2f}")
+                f"from_factors_s={build_s:.2f} steps={row['schedule_steps']}"
+                f"->{row['steps']} pack_s={row['pack_s']:.3f}")
     # ILU(0) on a nonsymmetric torso2 system: bicgstab and gmres
     N = nonsymmetric(systems["torso2_like"])
     x_true = rng.standard_normal(N.n_rows)
@@ -694,6 +770,136 @@ def phase_pcg(rng, scale: float = 1.0) -> tuple:
     return rows, counts
 
 
+def study_cases() -> list:
+    """(label, schedule) of lung2's and torso2's L and IC(0) L^T at full
+    scale: the forward and backward sweeps of the main paths."""
+    from repro_torch.precond import factorize
+    from repro_torch.solver.operator import orient_lower
+    from repro_torch.solver.schedule import schedule_for_csr
+    from repro_torch.sparse import generators
+    from repro_torch.sparse.levels import build_levels
+    out = []
+    for mat in ("lung2_like", "torso2_like"):
+        L = getattr(generators, mat)(1.0)
+        fac = factorize.ic0(generators.spd_from_lower(L, seed=0))
+        Lt = orient_lower(fac.L, "lower", True)[0]
+        for label, M in ((f"{mat}(1.0)", L), (f"{mat}(1.0)/ic0/L^T", Lt)):
+            out.append((label, schedule_for_csr(M, build_levels(M))))
+    return out
+
+
+def study_rhs(sched, R: int, rng) -> torch.Tensor:
+    from repro_torch.solver.levelset import pad_rhs
+    return pad_rhs(torch.as_tensor(rng.standard_normal((sched.n, R)),
+                                   dtype=torch.float32,
+                                   device="cuda")).contiguous()
+
+
+def phase_sweep(rng) -> dict:
+    """K1/K2 (R = 1, 8) on the study cases at every consumer count, 32 to
+    MAX_CONSUMERS, then the ratio ROUND_WARPS of `consumer_threads` that
+    minimizes the summed excess of the chosen count's time over the
+    fastest count's, case by case."""
+    from repro_torch.kernels import sptrsv_level as K
+    rows = []
+    for label, sched in study_cases():
+        packed = K.pack_schedule(sched).to("cuda")
+        for R in (1, 8):
+            c_pad = study_rhs(sched, R, rng)
+            call = lambda: K.sptrsv_groups_multi(None, c_pad, n=sched.n,
+                                                 n_carry=sched.n_carry,
+                                                 packed=packed)
+            ms = {}
+            for threads in range(32, K.MAX_CONSUMERS + 1, 32):
+                packed.consumers[R] = threads   # consumer_threads' cache
+                ms[threads] = time_ms(call, KERNEL_REPS)
+            del packed.consumers[R]
+            warps, book, rounds = K.consumer_terms(packed, R)
+            best = min(ms, key=ms.get)
+            rows.append({"case": label, "R": R, "ms": ms, "best": best,
+                         "chosen": K.consumer_threads(packed, R),
+                         "book": book.tolist(), "rounds": rounds.tolist()})
+            log(f"  sweep {label:28s} R={R}: fastest {best} threads "
+                f"{ms[best]:.4f} ms; chosen {rows[-1]['chosen']} "
+                f"{ms[rows[-1]['chosen']]:.4f} ms; 32/256/512/992: "
+                + "/".join(f"{ms[t]:.4f}" for t in (32, 256, 512, 992)))
+
+    def excess(rho):
+        tot = 0.0
+        for r in rows:
+            w = int(np.argmin(np.asarray(r["book"]) +
+                              rho * np.asarray(r["rounds"]))) + 1
+            tot += r["ms"][32 * w] / r["ms"][r["best"]] - 1
+        return tot
+
+    ratios = np.geomspace(0.1, 1000.0, 801)
+    ex = np.array([excess(rho) for rho in ratios])
+    fit = ratios[ex <= ex.min() + 1e-12]
+    rho = float(np.sqrt(fit[0] * fit[-1]))
+    log(f"  ROUND_WARPS: now {K.ROUND_WARPS} (summed excess "
+        f"{excess(K.ROUND_WARPS):.4f}); fitted {rho:.3f} (ties "
+        f"{fit[0]:.3f}..{fit[-1]:.3f}, excess {excess(rho):.4f})")
+    return {"rows": rows, "round_warps_now": K.ROUND_WARPS,
+            "excess_now": excess(K.ROUND_WARPS), "round_warps_fit": rho,
+            "fit_range": [float(fit[0]), float(fit[-1])],
+            "excess_fit": excess(rho)}
+
+
+def load_other(checkout: Path, name: str):
+    """The SpTRSV kernel module of another checkout's `repro_torch`,
+    imported under the package name `name` (its kernel source is built
+    into that checkout's own build/kernels)."""
+    import importlib
+    import importlib.util
+    pkg = checkout.resolve() / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.kernels.sptrsv_level")
+
+
+def phase_ab(dirs: list, rng) -> list:
+    """K1/K2 (R = 1, 8) of each other checkout in `dirs` beside this
+    one's, on the study cases, on one card in one process: each packs the
+    schedule its own way; timed in turns (other, this, this, other) and
+    held against each other (KERNEL_RTOL, relative to scale)."""
+    from repro_torch.kernels import sptrsv_level as K
+    others = [(str(d), load_other(Path(d), f"other{i}_repro_torch"))
+              for i, d in enumerate(dirs)]
+    rows = []
+    for label, sched in study_cases():
+        n, nc = sched.n, sched.n_carry
+        mine = K.pack_schedule(sched).to("cuda")
+        for R in (1, 8):
+            c_pad = study_rhs(sched, R, rng)
+            this = lambda: K.sptrsv_groups_multi(None, c_pad, n=n,
+                                                 n_carry=nc, packed=mine)
+            x = this()
+            for d, KO in others:
+                theirs = KO.pack_schedule(sched).to("cuda")
+                other = lambda: KO.sptrsv_groups_multi(
+                    None, c_pad, n=n, n_carry=nc, packed=theirs)
+                _, rel = rel_err(x, other())
+                check(rel <= KERNEL_RTOL, f"{label} R={R}: {d}'s kernel "
+                      f"differs by {rel:.3e} relative to scale")
+                t = [time_ms(f, KERNEL_REPS)
+                     for f in (other, this, this, other)]
+                rows.append({"other": d, "case": label, "R": R,
+                             "schedule_steps": sched.num_steps,
+                             "steps": mine.num_steps,
+                             "threads": K.consumer_threads(mine, R),
+                             "other_ms": [t[0], t[3]],
+                             "this_ms": [t[1], t[2]], "max_rel_diff": rel,
+                             "speedup": (t[0] + t[3]) / (t[1] + t[2])})
+                log(f"  ab {d:16s} {label:28s} R={R} threads="
+                    f"{rows[-1]['threads']} other_ms={t[0]:.4f},{t[3]:.4f}"
+                    f" this_ms={t[1]:.4f},{t[2]:.4f} "
+                    f"x{rows[-1]['speedup']:.3f} diff={rel:.1e}")
+    return rows
+
+
 def kernels_line(krows: list, counts: dict, pcg_counts: dict) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
     launches summed over the two main paths (phases 4 and 5)."""
@@ -730,7 +936,17 @@ def kernels_line(krows: list, counts: dict, pcg_counts: dict) -> dict:
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sweep", action="store_true",
+                    help="only time K1/K2 at every consumer count and fit "
+                         "the block size's ratio ROUND_WARPS")
+    ap.add_argument("--ab", nargs="+", type=Path, metavar="DIR",
+                    help="only time the K1/K2 of other checkouts (e.g. "
+                         "`git archive <commit> | tar -x -C build/other`) "
+                         "beside this one's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -741,6 +957,19 @@ def main() -> int:
     card = phase_card()
     log("== 2. build")
     build_s = phase_build()
+    if args.sweep or args.ab:
+        study = {"card": card}
+        if args.sweep:
+            log("== block size sweep")
+            study["sweep"] = phase_sweep(rng)
+        if args.ab:
+            log("== A/B against other checkouts")
+            study["ab"] = phase_ab(args.ab, rng)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_study.json").write_text(
+            json.dumps(study, indent=1))
+        log(card["nvidia_smi"])
+        return 0
     log("== 3. kernels against their plain versions")
     krows = phase_kernels(rng)
     log("== 4. main path")

@@ -6,29 +6,64 @@ Replaces the Pallas TPU kernels of `src/repro/kernels/sptrsv_level.py`:
   * K3 `sptrsv_levels_pallas` (legacy flat signature) -> `sptrsv_levels`,
     a thin wrapper over K1 that adds no kernel.
 
-What bounds it on the H100: the schedule's S dependent steps, not bytes —
-a solve moves the schedule, c and x once (a few MB, microseconds at
-3.35 TB/s), while each step pays the latency of a dependent gather, an
-FMA chain, a store and a block barrier.  The kernel
-(`csrc/sptrsv_level.cu`) runs the whole solve in one launch as one thread
-block looping over the steps with `__syncthreads()` between them, so no
-step pays a launch.  Its design notes are in the source.
+What bounds it on the H100: the chain of dependent steps, not bytes.  A
+solve moves the schedule, c and x once (a few MB, microseconds at
+3.35 TB/s), while every step pays a dependent gather of x, an FMA chain, a
+store and a barrier, and every warp in the step its bookkeeping.  So the
+design cuts the number of steps to the dependency DAG's depth and
+shortens each step:
 
-The packing and grid math stay here in Python: `pack_groups` turns the
-width groups into a step-major lane list (step offsets; per-lane row,
-carry slots, dinv and dep offset; a flat dep list), dropping padding lanes
-and zero-coefficient padding slots.  `emulate_packed` runs the kernel's
-per-step loop in torch on the same packed arrays, so a packing bug fails
-the CPU tests.
+* **Dependency-exact packing** (`pack_groups`, on the host, once per
+  schedule).  The schedule compiler caps a step at `chunk` lanes and
+  splits rows longer than `max_deps` into chains of partial lanes linked
+  by carry slots, one step per link.  The packing fuses every carry chain
+  back into one lane holding all of its row's deps, then re-levels: a
+  lane's step is 1 + the latest step of the rows it reads, with no cap on
+  lanes per step.  The kernel's steps then equal the DAG's level count
+  (lung2's backward IC(0) sweep: 2,717 schedule steps -> 479), and it
+  needs no carry buffer.
+* **Tiles.**  Each step's lanes (long lanes first, then by row) are cut
+  into tiles of at most one ring stage's bytes: a 16-byte header
+  (lanes, long lanes, flags: the tile ends its step, the tile is a run of
+  narrow steps), one 16-byte record per lane (row, 1/diag, dep offset,
+  dep count with bit 31 set on the last lane of its step) and the lane's
+  (index, coefficient) pairs, the tile padded to 16 bytes.  Consecutive
+  narrow steps (at most `NARROW_LANES` lanes, none long) share a tile,
+  which consumer warp 0 solves alone; a wider step has tiles of its own.
+  `tile_ptr` gives each tile's offset in 16-byte units.
+* **Rows longer than a tile** (more than `FAR_DEPS` deps: arrow or
+  circuit patterns, a dense column of an IC(0) factor) keep their pairs
+  in `far`, in device memory, and their record points there (a negative
+  dep offset); a tile never outgrows a ring stage, whatever the rows.
+* **Dependency-free rows** (`x = c / diag`: the whole first level) go to
+  a multi-block pass that runs first on the same stream (lung2's
+  backward sweep has 108,648 of them).
+* **Block size** (`consumer_threads`): the consumer warps that minimize
+  a cost of the wide steps for this schedule and R (each warp's
+  bookkeeping against the rounds of items a thread takes, one ratio
+  fitted on the card), cached per R.
+
+The kernel (`csrc/sptrsv_level.cu`) streams the tiles through a ring of
+`RING_BYTES` in shared memory with TMA bulk copies and one block of up to
+1024 threads; a thread's item is a short lane and one column, or with
+R % 4 == 0 four columns (`items_per_lane`); its design notes are in the
+source.  `emulate_packed` runs its per-tile,
+per-step loop in torch on the same packed arrays, writes of a step
+becoming visible only at the step's end, so a packing bug fails the CPU
+tests.
 
 Dispatch: a wrapper given CPU tensors runs the plain version
 (`kernels/ref.py`) and counts it under "plain"; given CUDA tensors it
-launches the kernel or raises.  `LAUNCHES` counts launches per entry point.
+launches the kernel or raises.  `LAUNCHES` counts solves per entry point
+(one per solve, the dependency-free pass included).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import time
+import weakref
 
 import numpy as np
 import torch
@@ -36,16 +71,37 @@ import torch
 from . import ref
 
 __all__ = ["PackedSchedule", "pack_groups", "pack_schedule",
-           "emulate_packed", "sptrsv_groups", "sptrsv_groups_multi",
-           "sptrsv_levels", "LAUNCHES", "reset_launch_counts",
-           "MAX_THREADS"]
+           "unpack_tiles", "emulate_packed", "sptrsv_groups",
+           "sptrsv_groups_multi", "sptrsv_levels", "LAUNCHES",
+           "reset_launch_counts", "consumer_threads", "consumer_terms",
+           "items_per_lane", "LONG_DEPS", "FAR_DEPS"]
 
 # launches per entry point: K1, K2, K3 (which launches through K1), and
 # the plain version taken for CPU tensors
 LAUNCHES = {"sptrsv_groups": 0, "sptrsv_groups_multi": 0,
             "sptrsv_levels": 0, "plain": 0}
 
-MAX_THREADS = 1024          # one block: the kernel's __launch_bounds__
+LONG_DEPS = 32              # a lane with more deps is summed by a warp,
+LONG_CHUNK = 32 * 8         # which gathers this many of them per round
+FAR_DEPS = 4096             # a lane with more deps reads them from `far`
+HEADER_WORDS = 4            # tile header: 4 int32
+LANE_WORDS = 4              # lane record: row, 1/diag bits, dep offset, count
+MIN_STAGE_BYTES = 16 << 10  # a ring stage holds at least 16 KB
+RING_BYTES = 96 << 10       # the ring's shared memory (of 227 KB; the rest
+                            # of the SM's 256 KB serves as L1 for x)
+MAX_STAGES = 16             # the kernel's mbarrier pairs
+MAX_CONSUMERS = 992         # 31 consumer warps + 1 producer warp = 1024
+NARROW_LANES = 32           # a step of at most this many lanes (none long) is
+                            # solved by consumer warp 0 alone, in a run of
+                            # such steps that share a tile
+# choosing the consumer warps: every consumer warp adds its bookkeeping
+# to each wide step (its header reads, its arrival on the stage's
+# mbarrier, its share of the step barrier), and every round of items past
+# the first that a thread takes in one step adds a dependent trip to L2
+# for c and x, which costs as much as ROUND_WARPS warps' bookkeeping:
+# fitted on an H100 by `chip_smoke.py --sweep` (from 62 to 91 every value
+# makes the same choices on lung2's and torso2's sweeps at R = 1 and 8)
+ROUND_WARPS = 75.0
 
 
 def reset_launch_counts() -> None:
@@ -55,44 +111,56 @@ def reset_launch_counts() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class PackedSchedule:
-    """Step-major lane list consumed by the CUDA kernel (and its emulator).
+    """A schedule in the kernel's dependency-exact tiled form.
 
-    step_ptr (S+1,) int32      lanes of step s are step_ptr[s]:step_ptr[s+1]
-    lane_row (L,) int32        row to finalize; n for a partial-row lane
-    lane_cin (L,) int32        carry slot to add (n_carry: the zero slot)
-    lane_cout (L,) int32       carry slot to write (n_carry+1: none)
-    lane_dinv (L,) float32     1/diag (0 for partial-row lanes)
-    dep_ptr (L+1,) int32       deps of lane l are dep_ptr[l]:dep_ptr[l+1]
-    dep_idx (E,) int32, dep_coef (E,) float32
+    tiles (W,) int32          the tile stream (module doc), W % 4 == 0
+    tile_ptr (T+1,) int32     tile t is tiles[4*tile_ptr[t]:4*tile_ptr[t+1]]
+    far (2P,) int32           (index, coefficient) pairs of the lanes of
+                              more than FAR_DEPS deps; such a lane's dep
+                              offset is ~(its first pair)
+    free_row (F,) int32       rows of the dependency-free pass, ascending
+    free_dinv (F,) float32    their 1/diag
+    num_steps                 DAG levels: the free pass (when F > 0) is
+                              step 0, the tiles hold the rest
+    schedule_steps            the schedule's steps before re-levelling
+    stage_bytes, num_stages   the ring the tiles were cut for
+    step_short, step_long     short lanes of each tile step, and its long
+                              lanes' rounds of LONG_CHUNK deps (host
+                              numpy), from which the launch sizes the block
     """
 
-    step_ptr: torch.Tensor
-    lane_row: torch.Tensor
-    lane_cin: torch.Tensor
-    lane_cout: torch.Tensor
-    lane_dinv: torch.Tensor
-    dep_ptr: torch.Tensor
-    dep_idx: torch.Tensor
-    dep_coef: torch.Tensor
+    tiles: torch.Tensor
+    tile_ptr: torch.Tensor
+    far: torch.Tensor
+    free_row: torch.Tensor
+    free_dinv: torch.Tensor
     n: int
     n_carry: int
-    max_step_lanes: int
+    num_steps: int
+    schedule_steps: int
+    stage_bytes: int
+    num_stages: int
+    step_short: np.ndarray
+    step_long: np.ndarray
+    num_lanes: int
+    num_deps: int
+    long_lanes: int
+    widest_step: int
+    pack_s: float
+    consumers: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
     @property
-    def num_steps(self) -> int:
-        return int(self.step_ptr.shape[0]) - 1
+    def num_tiles(self) -> int:
+        return int(self.tile_ptr.shape[0]) - 1
 
     @property
-    def num_lanes(self) -> int:
-        return int(self.lane_row.shape[0])
-
-    @property
-    def num_deps(self) -> int:
-        return int(self.dep_idx.shape[0])
+    def num_free(self) -> int:
+        return int(self.free_row.shape[0])
 
     def tensors(self) -> tuple:
-        return (self.step_ptr, self.lane_row, self.lane_cin, self.lane_cout,
-                self.lane_dinv, self.dep_ptr, self.dep_idx, self.dep_coef)
+        return (self.tiles, self.tile_ptr, self.far, self.free_row,
+                self.free_dinv)
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.tensors())
@@ -117,15 +185,23 @@ def _segment_arange(lens: np.ndarray) -> np.ndarray:
         np.repeat(starts, lens)
 
 
-def pack_groups(groups, n: int, n_carry: int) -> PackedSchedule:
-    """Repack width groups (leaf tuples of numpy arrays or tensors, as in
-    `DeviceSchedule.groups`) into the kernel's step-major lane list.
+def _ptr(cnt: np.ndarray) -> np.ndarray:
+    out = np.zeros(cnt.size + 1, dtype=np.int64)
+    np.cumsum(cnt, out=out[1:])
+    return out
 
-    Within a step, lanes keep group order, then lane order.  A lane is
-    dropped when it neither finalizes a row nor writes a carry (padding);
-    a dep slot is dropped when its coefficient is 0 (padding slots).
-    """
-    num_steps = int(_np(groups[0][0]).shape[0]) if groups else 0
+
+def _gather_deps(ptr: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """Positions of the deps of lanes `order`, lane by lane."""
+    cnt = ptr[1:] - ptr[:-1]
+    return np.repeat(ptr[:-1][order], cnt[order]) + \
+        _segment_arange(cnt[order])
+
+
+def _flat_lanes(groups, n: int, n_carry: int) -> dict:
+    """The groups' real lanes, step-major (within a step: group order, then
+    lane order).  A lane that neither finalizes a row nor writes a carry
+    (padding) is dropped, and so is a dep slot with coefficient 0."""
     cols = {k: [] for k in ("step", "row", "cin", "cout", "dinv", "cnt",
                             "idx", "coef")}
     for g in groups:
@@ -146,34 +222,230 @@ def pack_groups(groups, n: int, n_carry: int) -> PackedSchedule:
         cols["cnt"].append(keep.sum(1))
         cols["idx"].append(idx[s_i, c_i][keep])         # lane-major order
         cols["coef"].append(coef[s_i, c_i][keep])
-    cat = {k: (np.concatenate(v) if v else np.zeros(0))
+    cat = {k: (np.concatenate(v) if v else np.zeros(0, dtype=np.int64))
+           .astype(np.float32 if k in ("dinv", "coef") else np.int64)
            for k, v in cols.items()}
-    order = np.argsort(cat["step"], kind="stable")      # step-major
-    cnt = cat["cnt"].astype(np.int64)
-    src_start = np.cumsum(cnt) - cnt
-    dep_gather = np.repeat(src_start[order], cnt[order]) + \
-        _segment_arange(cnt[order])
-    lanes_per_step = np.bincount(cat["step"].astype(np.int64),
-                                 minlength=num_steps)
-    step_ptr = np.zeros(num_steps + 1, dtype=np.int64)
-    np.cumsum(lanes_per_step, out=step_ptr[1:])
-    dep_ptr = np.zeros(order.size + 1, dtype=np.int64)
-    np.cumsum(cnt[order], out=dep_ptr[1:])
+    order = np.argsort(cat["step"], kind="stable")
+    gather = _gather_deps(_ptr(cat["cnt"]), order)
+    out = {k: cat[k][order] for k in ("step", "row", "cin", "cout", "dinv",
+                                      "cnt")}
+    out["idx"], out["coef"] = cat["idx"][gather], cat["coef"][gather]
+    return out
+
+
+def _fuse_chains(lanes: dict, n: int, n_carry: int) -> dict:
+    """Fuse each carry chain (partial lanes linked carry_out -> carry_in)
+    into its final lane, which then holds all of the row's deps in chain
+    order.  Returns per fused lane: row, dinv, step (the final lane's
+    schedule step), cnt, and the flat idx/coef; lanes stay sorted by
+    step."""
+    row, step, cin, cout = (lanes[k] for k in ("row", "step", "cin",
+                                               "cout"))
+    writes = cout != n_carry + 1
+    reads = cin != n_carry
+    if not (writes.any() or reads.any()):
+        return {k: lanes[k] for k in ("row", "dinv", "step", "cnt", "idx",
+                                      "coef")}
+    if ((cout[writes] < 0) | (cout[writes] >= n_carry)).any() or \
+            ((cin[reads] < 0) | (cin[reads] >= n_carry)).any():
+        raise ValueError("a carry slot lies outside [0, n_carry)")
+    if (writes & (row != n)).any():
+        raise ValueError("a lane both finalizes a row and writes a carry")
+    n_w = np.bincount(cout[writes], minlength=n_carry)
+    n_r = np.bincount(cin[reads], minlength=n_carry)
+    for what, cnt in (("writers", n_w), ("readers", n_r)):
+        bad = np.flatnonzero(cnt > 1)
+        if bad.size:
+            raise ValueError(f"carry slot {int(bad[0])} has "
+                             f"{int(cnt[bad[0]])} {what}; a chain needs one")
+    if (n_w != n_r).any():
+        bad = int(np.flatnonzero(n_w != n_r)[0])
+        raise ValueError(f"carry slot {bad} is written {int(n_w[bad])} and "
+                         f"read {int(n_r[bad])} times")
+    reader = np.full(n_carry, -1, dtype=np.int64)
+    reader[cin[reads]] = np.flatnonzero(reads)
+    nxt = np.arange(row.size, dtype=np.int64)
+    nxt[writes] = reader[cout[writes]]
+    if (step[nxt[writes]] <= step[writes]).any():
+        raise ValueError("a carry slot is read no later than the step that "
+                         "writes it")
+    while True:                                  # pointer jumping
+        jumped = nxt[nxt]
+        if np.array_equal(jumped, nxt):
+            break
+        nxt = jumped
+    order = np.lexsort((step, nxt))              # by chain, links in order
+    gather = _gather_deps(_ptr(lanes["cnt"]), order)
+    finals = np.flatnonzero(~writes)             # sorted: step-major
+    fused_cnt = np.bincount(np.searchsorted(finals, nxt[order]),
+                            weights=lanes["cnt"][order],
+                            minlength=finals.size).astype(np.int64)
+    return {"row": row[finals], "dinv": lanes["dinv"][finals],
+            "step": step[finals], "cnt": fused_cnt,
+            "idx": lanes["idx"][gather], "coef": lanes["coef"][gather]}
+
+
+def _relevel(fused: dict, n: int) -> np.ndarray:
+    """Each fused lane's DAG level: 0 without deps, else 1 + the latest
+    level of the rows it reads.  One vectorised pass per schedule step
+    (a lane reads only rows that earlier steps finalize; anything else
+    raises)."""
+    row, step, cnt, idx = (fused[k] for k in ("row", "step", "cnt", "idx"))
+    if row.size and ((row < 0) | (row >= n)).any():
+        raise ValueError("a lane finalizes a row outside [0, n)")
+    if row.size and np.bincount(row, minlength=n).max() > 1:
+        raise ValueError("a row is finalized by more than one lane")
+    ptr = _ptr(cnt)
+    level_of_row = np.full(n + 1, -1, dtype=np.int64)   # n: never final
+    idx_c = np.where((idx >= 0) & (idx < n), idx, n)
+    level = np.zeros(row.size, dtype=np.int64)
+    bounds = np.concatenate([[0], np.flatnonzero(np.diff(step)) + 1,
+                             [row.size]])
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        ea = ptr[a]
+        dep_lvl = level_of_row[idx_c[ea:ptr[b]]]
+        if (dep_lvl < 0).any():
+            raise ValueError(f"a lane of schedule step {int(step[a])} "
+                             "reads a row that no earlier step finalizes")
+        nz = np.flatnonzero(cnt[a:b] > 0)
+        lvl = np.zeros(b - a, dtype=np.int64)
+        if nz.size:
+            lvl[nz] = np.maximum.reduceat(dep_lvl, ptr[a:b][nz] - ea) + 1
+        level_of_row[row[a:b]] = lvl
+        level[a:b] = lvl
+    return level
+
+
+def _cut_tiles(lvl: np.ndarray, nbytes: np.ndarray, narrow: np.ndarray,
+               cap: int) -> tuple:
+    """Cut the lanes (sorted by step) into tiles of at most `cap` bytes:
+    runs of consecutive narrow steps share a tile (a step never straddles
+    two of them), a wide step is cut greedily into tiles of its own.
+    `narrow` flags each step.  Returns (tile start lanes (T+1,), ends-step
+    flags, narrow-run flags)."""
+    cum = _ptr(nbytes)
+    steps = np.append(np.flatnonzero(np.diff(lvl, prepend=-1) != 0),
+                      lvl.size)
+    starts, ends_step, runs = [], [], []
+    open_run = False
+    for k, (a, b) in enumerate(zip(steps[:-1], steps[1:])):
+        a, b = int(a), int(b)
+        if narrow[k]:
+            if not (open_run and cum[b] - cum[starts[-1]] <= cap):
+                starts.append(a)
+                ends_step.append(True)
+                runs.append(True)
+            open_run = True
+            continue
+        open_run = False
+        i = a
+        while i < b:
+            j = min(b, int(np.searchsorted(cum, cum[i] + cap,
+                                           side="right")) - 1)
+            starts.append(i)
+            ends_step.append(j == b)
+            runs.append(False)
+            i = j
+    starts.append(int(lvl.size))
+    return (np.asarray(starts, dtype=np.int64),
+            np.asarray(ends_step, bool), np.asarray(runs, bool))
+
+
+def pack_groups(groups, n: int, n_carry: int) -> PackedSchedule:
+    """Repack width groups (leaf tuples of numpy arrays or tensors, as in
+    `DeviceSchedule.groups`) into the kernel's dependency-exact tiles
+    (module doc); the dependency-free rows go to the free pass.  Raises on
+    a malformed carry chain (a slot with more than one writer or reader)
+    and on a lane that reads a row no earlier step finalizes."""
+    t0 = time.perf_counter()
+    num_sched_steps = int(_np(groups[0][0]).shape[0]) if groups else 0
+    fused = _fuse_chains(_flat_lanes(groups, n, n_carry), n, n_carry)
+    lvl = _relevel(fused, n)
+    row, cnt = fused["row"], fused["cnt"]
+    num_steps = int(lvl.max()) + 1 if lvl.size else 0
+    widest = int(np.bincount(lvl).max()) if lvl.size else 0
+    is_free = lvl == 0
+    free = np.flatnonzero(is_free)
+    free = free[np.argsort(row[free], kind="stable")]
+    long_ = cnt > LONG_DEPS
+    tl = np.flatnonzero(~is_free)
+    tl = tl[np.lexsort((row[tl], ~long_[tl], lvl[tl]))]
+    ptr = _ptr(cnt)
+    t_cnt, t_long, t_lvl = cnt[tl], long_[tl], lvl[tl]
+    t_far = t_cnt > FAR_DEPS
+    t_in = np.where(t_far, 0, t_cnt)                # deps held in the tile
+    lane_bytes = 4 * LANE_WORDS + 8 * t_in
+    need = 4 * HEADER_WORDS + int(lane_bytes.max(initial=0))
+    stage = max(MIN_STAGE_BYTES, -(-need // 1024) * 1024)
+    step_lo = np.flatnonzero(np.diff(t_lvl, prepend=-1) != 0)
+    step_n = np.diff(np.append(step_lo, t_lvl.size))
+    narrow = step_n <= NARROW_LANES
+    if step_lo.size:
+        narrow &= np.add.reduceat(t_long.astype(np.int64), step_lo) == 0
+    starts, ends_step, runs = _cut_tiles(t_lvl, lane_bytes, narrow,
+                                         stage - 4 * HEADER_WORDS)
+    T = ends_step.size
+    tile_nl = np.diff(starts)
+    tile_of = np.repeat(np.arange(T), tile_nl)
+    lane_in_tile = np.arange(tl.size) - starts[tile_of]
+    dcum = _ptr(t_in)
+    tile_nd = dcum[starts[1:]] - dcum[starts[:-1]]
+    tile_words = -(-(HEADER_WORDS + LANE_WORDS * tile_nl + 2 * tile_nd)
+                   // 4) * 4
+    base = _ptr(tile_words)
+    words = np.zeros(int(base[-1]), dtype=np.int32)
+    # header: lanes, long lanes, flags (ends its step | narrow run << 1), 0
+    lcum = _ptr(t_long.astype(np.int64))
+    tile_long = lcum[starts[1:]] - lcum[starts[:-1]]
+    words[base[:-1]] = tile_nl
+    words[base[:-1] + 1] = tile_long
+    words[base[:-1] + 2] = ends_step | (runs.astype(np.int64) << 1)
+    # lane records
+    dep_off = HEADER_WORDS + LANE_WORDS * tile_nl[tile_of] + \
+        2 * (dcum[:-1] - dcum[starts[tile_of]])
+    rec = base[tile_of] + HEADER_WORDS + LANE_WORDS * lane_in_tile
+    words[rec] = row[tl]
+    words[rec + 1] = fused["dinv"][tl].astype(np.float32).view(np.int32)
+    far_first = np.zeros(tl.size, dtype=np.int64)
+    far_first[t_far] = _ptr(t_cnt[t_far])[:-1]
+    words[rec + 2] = np.where(t_far, ~far_first, dep_off)
+    last = np.zeros(tl.size, dtype=np.int64)        # last lane of its step
+    last[step_lo[1:] - 1] = 1
+    last[-1:] = 1
+    words[rec + 3] = (t_cnt | (last << 31)).astype(np.uint32).view(np.int32)
+    # deps: (index, coefficient) pairs, in the tile or in `far`
+    src = _gather_deps(ptr, tl[~t_far])
+    dst = np.repeat((base[tile_of] + dep_off)[~t_far], t_cnt[~t_far]) + \
+        2 * _segment_arange(t_cnt[~t_far])
+    words[dst] = fused["idx"][src]
+    words[dst + 1] = fused["coef"][src].astype(np.float32).view(np.int32)
+    src = _gather_deps(ptr, tl[t_far])
+    far = np.empty((src.size, 2), dtype=np.int32)
+    far[:, 0] = fused["idx"][src]
+    far[:, 1] = fused["coef"][src].astype(np.float32).view(np.int32)
 
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
-    def f32(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    def per_step(vals):             # summed over each step the tiles hold
+        return np.bincount(t_lvl, weights=vals.astype(np.float64),
+                           minlength=num_steps)[1 if free.size else 0:] \
+            .astype(np.int64)
 
     return PackedSchedule(
-        step_ptr=i32(step_ptr), lane_row=i32(cat["row"][order]),
-        lane_cin=i32(cat["cin"][order]), lane_cout=i32(cat["cout"][order]),
-        lane_dinv=f32(cat["dinv"][order]), dep_ptr=i32(dep_ptr),
-        dep_idx=i32(cat["idx"][dep_gather]),
-        dep_coef=f32(cat["coef"][dep_gather]), n=int(n),
-        n_carry=int(n_carry),
-        max_step_lanes=int(lanes_per_step.max(initial=0)))
+        tiles=torch.from_numpy(words), tile_ptr=i32(base // 4),
+        far=torch.from_numpy(far.reshape(-1)),
+        free_row=i32(row[free]),
+        free_dinv=torch.from_numpy(np.ascontiguousarray(
+            fused["dinv"][free], dtype=np.float32)),
+        n=int(n), n_carry=int(n_carry), num_steps=num_steps,
+        schedule_steps=num_sched_steps, stage_bytes=int(stage),
+        num_stages=int(min(MAX_STAGES, RING_BYTES // stage)),
+        step_short=per_step((~t_long).astype(np.int64)),
+        step_long=per_step(t_long * -(-t_cnt // LONG_CHUNK)),
+        num_lanes=int(row.size), num_deps=int(cnt.sum()),
+        long_lanes=int(long_.sum()), widest_step=widest,
+        pack_s=time.perf_counter() - t0)
 
 
 def pack_schedule(sched) -> PackedSchedule:
@@ -185,44 +457,127 @@ def pack_schedule(sched) -> PackedSchedule:
     return pack_groups(leaves, sched.n, sched.n_carry)
 
 
+def unpack_tiles(packed: PackedSchedule) -> dict:
+    """Decode the tile stream into per-lane numpy arrays, lane by lane in
+    stream order: tile, step (counting the free pass as step 0 when it
+    exists), row, dinv, long (summed by a warp), last (of its step),
+    dep_ptr, dep_idx, dep_coef; plus the per-tile header fields under
+    "tile_*"."""
+    w = _np(packed.tiles)
+    wf = np.concatenate([w, _np(packed.far)])   # tiles, then far pairs
+    tp = _np(packed.tile_ptr).astype(np.int64) * 4
+    out = {k: [] for k in ("tile", "step", "row", "dinv", "long", "last",
+                           "dep_cnt", "dep_idx", "dep_coef")}
+    hdr = {k: [] for k in ("lanes", "long", "ends_step", "narrow_run")}
+    step = 1 if packed.num_free else 0
+    for t in range(packed.num_tiles):
+        tw = w[tp[t]:tp[t + 1]]
+        nl, nlong, flags = (int(v) for v in tw[:3])
+        for k, v in zip(hdr, (nl, nlong, bool(flags & 1),
+                              bool(flags & 2))):
+            hdr[k].append(v)
+        rec = tw[HEADER_WORDS:HEADER_WORDS + LANE_WORDS * nl].reshape(
+            nl, LANE_WORDS)
+        cnt = (rec[:, 3] & 0x7FFFFFFF).astype(np.int64)
+        last = rec[:, 3] < 0
+        off = rec[:, 2].astype(np.int64)        # < 0: ~(pair in far)
+        off = np.where(off < 0, w.size + 2 * ~off, tp[t] + off)
+        pos = np.repeat(off, cnt) + 2 * _segment_arange(cnt)
+        out["tile"].append(np.full(nl, t))
+        out["step"].append(step + np.cumsum(last) - last)
+        out["row"].append(rec[:, 0])
+        out["dinv"].append(np.ascontiguousarray(rec[:, 1]).view(np.float32))
+        out["long"].append(np.arange(nl) < nlong)
+        out["last"].append(last)
+        out["dep_cnt"].append(cnt)
+        out["dep_idx"].append(wf[pos])
+        out["dep_coef"].append(wf[pos + 1].view(np.float32))
+        step += int(last.sum())
+    empty = {"dinv": np.float32, "dep_coef": np.float32, "long": bool,
+             "last": bool}
+    res = {k: (np.concatenate(v) if v else
+               np.zeros(0, dtype=empty.get(k, np.int64)))
+           for k, v in out.items()}
+    res["dep_ptr"] = _ptr(res.pop("dep_cnt").astype(np.int64))
+    res.update({f"tile_{k}": np.asarray(v) for k, v in hdr.items()})
+    return res
+
+
 def emulate_packed(packed: PackedSchedule, c_pad: torch.Tensor) \
         -> torch.Tensor:
-    """The kernel's per-step loop in torch, on the packed arrays: c_pad
-    (n+1,) or (n+1, R) float32.  Returns x (n,) or (n, R)."""
-    n, n_carry = packed.n, packed.n_carry
+    """The kernel's loop in torch on the packed arrays: the free pass, then
+    tile by tile and, inside a tile, step by step, a step's writes becoming
+    visible only after its last lane (the kernel's step barrier, or warp
+    0's __syncwarp in a narrow run).  c_pad (n+1,) or (n+1, R) float32.
+    Returns x (n,) or (n, R)."""
+    n = packed.n
     tail = tuple(c_pad.shape[1:])
     dev = c_pad.device
-    p = packed.to(dev)
-    step_ptr = p.step_ptr.tolist()
-    dep_ptr = p.dep_ptr.long()
-    lane_of_dep = torch.repeat_interleave(
-        torch.arange(packed.num_lanes, device=dev), dep_ptr.diff())
     x = torch.zeros((n + 1,) + tail, dtype=c_pad.dtype, device=dev)
-    carry = torch.zeros((n_carry + 2,) + tail, dtype=c_pad.dtype, device=dev)
-    coef = p.dep_coef.to(c_pad.dtype)
-    if tail:
-        coef = coef[:, None]
-    for s in range(packed.num_steps):
-        lo, hi = step_ptr[s], step_ptr[s + 1]
-        elo, ehi = int(dep_ptr[lo]), int(dep_ptr[hi])
-        prod = coef[elo:ehi] * x[p.dep_idx[elo:ehi].long()]
-        tot = torch.zeros((hi - lo,) + tail, dtype=c_pad.dtype, device=dev)
-        tot.index_add_(0, lane_of_dep[elo:ehi] - lo, prod)
-        tot = tot + carry[p.lane_cin[lo:hi].long()]
-        row = p.lane_row[lo:hi].long()
-        fin = row < n
-        dinv = p.lane_dinv[lo:hi].to(c_pad.dtype)[fin]
-        if tail:
-            dinv = dinv[:, None]
-        x[row[fin]] = (c_pad[row[fin]] - tot[fin]) * dinv
-        cout = p.lane_cout[lo:hi].long()
-        part = cout < n_carry
-        carry[cout[part]] = tot[part]
+
+    def col(a):
+        t = torch.as_tensor(a, device=dev)
+        return t.to(c_pad.dtype)[:, None] if tail else t.to(c_pad.dtype)
+
+    fr = packed.free_row.to(dev).long()
+    x[fr] = c_pad[fr] * col(packed.free_dinv)
+    lanes = unpack_tiles(packed)
+    dptr = lanes["dep_ptr"]
+    # segments: the lanes of one step inside one tile
+    cut = np.flatnonzero(lanes["last"] |
+                         np.append(np.diff(lanes["tile"]) != 0, True)) + 1
+    pending = []
+    for a, b in zip(np.concatenate([[0], cut[:-1]]), cut):
+        idx = torch.as_tensor(lanes["dep_idx"][dptr[a]:dptr[b]],
+                              device=dev).long()
+        owner = torch.as_tensor(np.repeat(np.arange(b - a), np.diff(
+            dptr[a:b + 1])), device=dev)
+        tot = torch.zeros((b - a,) + tail, dtype=c_pad.dtype, device=dev)
+        tot.index_add_(0, owner, col(lanes["dep_coef"][dptr[a]:dptr[b]])
+                       * x[idx])
+        row = torch.as_tensor(lanes["row"][a:b], device=dev).long()
+        pending.append((row, (c_pad[row] - tot) * col(lanes["dinv"][a:b])))
+        if lanes["last"][b - 1]:
+            for r, v in pending:
+                x[r] = v
+            pending = []
     return x[:n]
 
 
+def items_per_lane(R: int) -> int:
+    """A short lane's items, a consumer thread's unit of work: one per
+    column, or at R % 4 == 0 (R > 1) one per 4 columns (float4 gathers)."""
+    return R // 4 if R > 1 and R % 4 == 0 else R
+
+
+def consumer_terms(packed: PackedSchedule, R: int) -> tuple:
+    """The two terms of the block size's cost for R columns, per count of
+    consumer warps w = 1..MAX_CONSUMERS // 32: (w, the warps' bookkeeping
+    w x wide steps, the extra rounds: items or long-lane gathers past a
+    thread's or a warp's first, summed over the wide steps).  Narrow runs
+    go to warp 0 whatever the count."""
+    items, longs = packed.step_short * items_per_lane(R), packed.step_long
+    wide = (packed.step_short > NARROW_LANES) | (longs > 0)
+    warps = np.arange(1, MAX_CONSUMERS // 32 + 1)
+    rounds = np.maximum(-(-items[wide] // (32 * warps[:, None])), 1) + \
+        np.maximum(-(-longs[wide] // warps[:, None]), 1) - 2
+    return warps, warps * int(wide.sum()), rounds.sum(1)
+
+
+def consumer_threads(packed: PackedSchedule, R: int) -> int:
+    """Consumer threads for R columns: 32 x the warps that minimize
+    bookkeeping + ROUND_WARPS x extra rounds (`consumer_terms`).  Cached
+    per R in `packed.consumers`."""
+    got = packed.consumers.get(R)
+    if got is None:
+        warps, book, rounds = consumer_terms(packed, R)
+        got = packed.consumers[R] = \
+            32 * int(warps[np.argmin(book + ROUND_WARPS * rounds)])
+    return got
+
+
 def _launch(packed: PackedSchedule, c_pad: torch.Tensor) -> torch.Tensor:
-    """Check and launch the CUDA kernel on c_pad (n+1, R) float32."""
+    """Check and launch the CUDA kernels on c_pad (n+1, R) float32."""
     from .build import load_library
     dev = c_pad.device
     if c_pad.dtype != torch.float32:
@@ -238,25 +593,30 @@ def _launch(packed: PackedSchedule, c_pad: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"packed schedule must be contiguous on {dev}, "
                              f"got a tensor on {t.device}")
     R = int(c_pad.shape[1])
+    if items_per_lane(R) != R and c_pad.data_ptr() % 16:
+        c_pad = c_pad.clone()           # float4 gathers need 16-byte rows
     x = torch.zeros((packed.n + 1, R), dtype=torch.float32, device=dev)
-    carry = torch.zeros((packed.n_carry + 2, R), dtype=torch.float32,
-                        device=dev)
-    threads = min(MAX_THREADS,
-                  max(32, -(-packed.max_step_lanes * R // 32) * 32))
+    consumers = consumer_threads(packed, R)
     lib = load_library("sptrsv_level")
-    fn = lib.sptrsv_levels_launch
+    fn = lib.sptrsv_tiles_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in packed.tensors()), c_pad.data_ptr(),
-                 x.data_ptr(), carry.data_ptr(), packed.num_steps, packed.n,
-                 packed.n_carry, R, threads, stream)
+        err = fn(packed.tiles.data_ptr(), packed.tile_ptr.data_ptr(),
+                 packed.num_tiles, packed.far.data_ptr(),
+                 packed.free_row.data_ptr(),
+                 packed.free_dinv.data_ptr(), packed.num_free,
+                 c_pad.data_ptr(), x.data_ptr(), R, consumers + 32,
+                 packed.stage_bytes, packed.num_stages, stream)
     if err != 0:
-        raise RuntimeError(f"sptrsv_levels_kernel launch failed: CUDA error "
-                           f"{err} (threads={threads}, steps="
-                           f"{packed.num_steps}, R={R})")
+        raise RuntimeError(
+            f"sptrsv_tiles_kernel launch failed: CUDA error {err} (threads="
+            f"{consumers + 32}, tiles={packed.num_tiles}, stage_bytes="
+            f"{packed.stage_bytes} x {packed.num_stages}, R={R})")
     return x
 
 
@@ -308,8 +668,8 @@ def sptrsv_groups_multi(groups, c_pad: torch.Tensor, *, n: int,
                         n_carry: int,
                         packed: PackedSchedule | None = None) -> torch.Tensor:
     """K2: the same solve for c_pad (n+1, R); returns x (n, R).  The
-    schedule streams once for all R columns (one thread per lane and
-    column)."""
+    schedule streams once for all R columns (one thread per short lane and
+    column, one warp per long lane looping over the columns)."""
     if c_pad.ndim != 2:
         raise ValueError(f"sptrsv_groups_multi takes c_pad (n+1, R), got "
                          f"{tuple(c_pad.shape)}")
@@ -319,12 +679,40 @@ def sptrsv_groups_multi(groups, c_pad: torch.Tensor, *, n: int,
                          "sptrsv_groups_multi")
 
 
+_LEGACY_PACKED = collections.OrderedDict()   # key -> (array refs, packed)
+_LEGACY_KEEP = 8
+
+
+def _legacy_packed(groups, n: int, n_carry: int,
+                   device) -> PackedSchedule:
+    """K3's packed form of its flat arrays on `device`: the one packed for
+    the same tensor objects at the same versions (no in-place write since;
+    among the last _LEGACY_KEEP), else packed now."""
+    arrays = groups[0]
+    if not all(isinstance(a, torch.Tensor) for a in arrays):
+        return pack_groups(groups, n, n_carry).to(device)
+    key = (n, n_carry, str(device)) + tuple((id(a), a._version)
+                                            for a in arrays)
+    hit = _LEGACY_PACKED.pop(key, None)
+    if hit is not None and all(r() is a for r, a in zip(hit[0], arrays)):
+        packed = hit[1]
+    else:
+        packed = pack_groups(groups, n, n_carry).to(device)
+    _LEGACY_PACKED[key] = (tuple(weakref.ref(a) for a in arrays), packed)
+    while len(_LEGACY_PACKED) > _LEGACY_KEEP:
+        _LEGACY_PACKED.popitem(last=False)
+    return packed
+
+
 def sptrsv_levels(row_ids, dep_idx, dep_coef, dinv, carry_in, carry_out,
                   c_ids, c_pad: torch.Tensor, *, n: int,
                   n_carry: int) -> torch.Tensor:
     """K3: single-group compatibility wrapper over K1's kernel (legacy flat
     signature; c_ids is accepted and ignored — row_ids doubles as the c
-    gather index).  Its launches count under "sptrsv_levels" only."""
+    gather index).  Its arrays are packed like any schedule's, carry
+    chains fused; a repeated call with the same tensors, unchanged, finds
+    their packed form kept.  Its launches count under "sptrsv_levels"
+    only."""
     del c_ids
     if c_pad.ndim != 1:
         raise ValueError(f"sptrsv_levels takes c_pad (n+1,), got "
@@ -332,5 +720,6 @@ def sptrsv_levels(row_ids, dep_idx, dep_coef, dinv, carry_in, carry_out,
     groups = ((row_ids, dep_idx, dep_coef, dinv, carry_in, carry_out),)
     if c_pad.device.type == "cpu":
         return _plain(groups, c_pad, n, n_carry)
-    return _kernel_solve(groups, c_pad.reshape(-1, 1), n, n_carry, None,
+    return _kernel_solve(None, c_pad.reshape(-1, 1), n, n_carry,
+                         _legacy_packed(groups, n, n_carry, c_pad.device),
                          "sptrsv_levels")[:, 0]

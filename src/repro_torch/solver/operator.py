@@ -250,7 +250,8 @@ class TriangularOperator:
         engine: a registered name ("cuda", "torch"), an Engine, or None for
                 the device's default ("cuda" on a card, "torch" on the CPU).
         device: "cuda" (the default when None) or "cpu"; None without CUDA
-                raises RuntimeError.
+                raises RuntimeError.  On a card the build also packs and
+                stages the sweep's schedules (main and preamble).
         cache:  look up / keep the compiled artifact in memory, keyed by
                 the matrix fingerprint and the configuration.
         """
@@ -289,6 +290,10 @@ class TriangularOperator:
         def _finish(payload, source):
             op = cls(L, payload, cache_source=source, device=dev, engine=eng)
             op._build_kwargs = dict(build_kwargs, tune=tune)
+            if dev.type == "cuda":
+                # pack and stage the sweep's schedules now, so the build
+                # and not the first solve pays the host packing
+                op.device_solve_fn()
             return op
 
         if cache:

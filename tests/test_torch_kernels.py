@@ -7,7 +7,7 @@ held against `repro.kernels.ref` and against the Pallas kernels in
 interpret mode.  Tolerance: 1e-6 rtol/atol in float32, as
 tests/test_kernels.py holds the Pallas kernels against their oracle (the
 two sides sum each row's terms in a different order).  The packing
-emulator consumes the same packed arrays as the CUDA kernel and must
+emulator runs the CUDA kernel's loop on the same packed arrays and must
 match the plain version to the same tolerance.  The kernel itself runs
 only on a card (`cuda` marker).
 """
@@ -117,19 +117,15 @@ def test_packing_emulator_matches_plain(name, R):
 def test_packing_drops_padding_and_finalizes_every_row_once(name):
     sched = schedule_from_numpy(_sched(name))
     p = K.pack_schedule(sched)
-    rows = p.lane_row.numpy()
-    final = np.sort(rows[rows < sched.n])
-    np.testing.assert_array_equal(final, np.arange(sched.n))
-    partial = rows == sched.n                   # split-row leading lanes
-    np.testing.assert_array_equal(p.lane_cout.numpy() < sched.n_carry,
-                                  partial)
-    assert (p.dep_coef.numpy() != 0).all()
-    step_ptr = p.step_ptr.numpy()
-    assert step_ptr[0] == 0 and step_ptr[-1] == p.num_lanes
-    assert p.num_steps == sched.num_steps
-    assert p.max_step_lanes == int(np.diff(step_ptr).max())
-    assert p.num_deps == sum(int((g.dep_coef != 0).sum())
-                             for g in sched.groups)
+    lanes = K.unpack_tiles(p)
+    rows = np.concatenate([p.free_row.numpy(), lanes["row"]])
+    np.testing.assert_array_equal(np.sort(rows), np.arange(sched.n))
+    assert p.num_lanes == sched.n               # carry chains fused
+    assert (lanes["dep_coef"] != 0).all()
+    assert p.schedule_steps == sched.num_steps
+    assert p.num_steps <= sched.num_steps
+    assert p.num_deps == lanes["dep_idx"].size == sum(
+        int((g.dep_coef != 0).sum()) for g in sched.groups)
 
 
 def test_legacy_flat_wrapper_matches_reference():
@@ -188,7 +184,7 @@ def test_packed_staging_leaves_the_width_groups_unstaged():
     ds = to_device(sched, "cpu")
     packed = ds.packed()
     assert "groups" not in vars(ds)
-    assert packed.num_steps == sched.num_steps
+    assert packed.schedule_steps == sched.num_steps
     assert len(ds.groups) == sched.num_groups and "groups" in vars(ds)
 
 
