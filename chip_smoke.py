@@ -16,14 +16,17 @@ non-zero:
    (L^T) IC(0) factors of their SPD systems (lung2's has rows of up to
    2,142 entries, 2,717 schedule steps), on a carry-bearing
    banded(4096, 40) schedule and on an arrow matrix whose row of 20,000
-   entries is longer than a tile holds; K2 (`sptrsv_groups_multi`) with R in
+   entries is longer than a tile holds; K1's stamped form
+   (`sptrsv_groups_stamped`) on lung2's and torso2's no_rewriting
+   schedules; K2 (`sptrsv_groups_multi`) with R in
    {1, 8, 32}; K3 (`sptrsv_levels`) on the carry schedule;
    K4 (`spmv_ell`) on spd_from_lower(torso2_like(1.0)) and
    poisson2d_spd(512, 512) in float32 and float64 (lung2's system is
    left out: its one 2,143-entry row pads the ELL to 234.6 M slots).
    Each case prints its error, the kernel's time (CUDA events over 50
    launches after warm-up), the plain version's time (5 runs), the time
-   of one cuSPARSE call on the same matrix (`torch.triangular_solve` for
+   (and, for K4, the profiler's device time) of one cuSPARSE call on the
+   same matrix (`torch.triangular_solve` for
    K1-K3, a `sparse_csr_tensor` product for K4; the yardstick, never
    called by the port) and the bytes/operations bound, and for K1 the
    schedule's steps before and after the packing re-levels it (which
@@ -45,7 +48,30 @@ non-zero:
    torso2 system; `kernels.ops.spmv_ell` against scipy's product.  The
    launch counts of K1, K2 and K4 must advance and the plain versions'
    must not.
-6. The kernels line and the contract line.
+6. The strategy-portfolio tuner at full size.  K1's stamped form
+   profiles the no_rewriting sweeps of lung2_like(1.0) and
+   torso2_like(1.0) (`obs.calibrate.calibrate_on`): its x must equal the
+   serving K1's exactly, its stamps must sum to within 10% of the
+   launch's event time (which holds unless the kernel's set-up before
+   its first stamp takes a tenth of the launch: the stamps are turned
+   into time by that event time), the clock its cycles imply must be
+   within 10% of the SM clock nvidia-smi reads while the kernel runs,
+   and `CostModel.calibrate` fits the card's constants to the two
+   profiles.  Then, on both matrices, a portfolio that measures every
+   candidate, and `TriangularOperator.from_csr(L)` at tune="auto" in
+   model mode and with measure_top_k=3 through a portfolio that takes
+   the candidates' transforms from the one before (`ReusedCandidates`:
+   the host transforms of lung2's ten candidates take two minutes); each
+   candidate prints its predicted us (the committed constants and the
+   fresh fit), its measured us, its packed steps, its preamble's steps
+   and its launches.  `from_csr(L)` as a user calls it, on torso2, must
+   pick as the model mode did.  Last `Preconditioner.ic0(A)` at its
+   default tune="auto" on both SPD systems, IC(0)-PCG with its pick (the
+   gates of phase 5, and no_rewriting's iteration count) and the staged
+   solve's ms beside no_rewriting's and avgLevelCost's on the same
+   factors, timed in turns.  K1 and its stamped form must be launched,
+   the plain version never.
+7. The kernels line and the contract line.
 
 Full results go to chiprun_out/chip_smoke.json.  With `--sweep` or
 `--ab`, phases 3-6 give way to studies of the SpTRSV kernel on lung2's
@@ -332,6 +358,9 @@ def run_case(kernel: str, case: dict, R: int, rng) -> dict:
     if kernel == "sptrsv_groups":
         call = lambda: K.sptrsv_groups(ds.groups, c_pad, n=n, n_carry=nc,
                                        packed=packed)
+    elif kernel == "sptrsv_groups_stamped":
+        call = lambda: K.sptrsv_groups_stamped(ds.groups, c_pad, n=n,
+                                               n_carry=nc, packed=packed).x
     elif kernel == "sptrsv_groups_multi":
         call = lambda: K.sptrsv_groups_multi(ds.groups, c_pad, n=n,
                                              n_carry=nc, packed=packed)
@@ -390,20 +419,25 @@ def spmv_bound(nnz: int, n: int, itemsize: int) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def spmv_library_ms(A, x: torch.Tensor):
-    """One cuSPARSE SpMV of the CSR matrix A by x, or None where the
-    card's PyTorch refuses it."""
+def spmv_library_ms(A, x: torch.Tensor) -> tuple:
+    """One cuSPARSE SpMV of the CSR matrix A by x: (ms by events, device ms
+    of its kernels by the profiler), or (None, None) where the card's
+    PyTorch refuses it.  The events time the host's call as well, which
+    at this size takes longer than the kernels."""
     try:
         M = csr_torch(A.indptr, A.indices, A.data, A.n_rows,
                       dtype=np.float32 if x.dtype == torch.float32
                       else np.float64)
         xc = x[:, None]
-        torch.sparse.mm(M, xc)
+        call = lambda: torch.sparse.mm(M, xc)
+        call()
         torch.cuda.synchronize()
-        return time_ms(lambda: torch.sparse.mm(M, xc), LIB_REPS)
+        prof = device_profile(call, KERNEL_REPS)
+        return (time_ms(call, LIB_REPS),
+                sum(prof.values()) if prof else None)
     except (RuntimeError, NotImplementedError, TypeError) as e:
         log(f"    library yardstick unavailable: {type(e).__name__}: {e}")
-        return None
+        return None, None
 
 
 def spmv_cases() -> list:
@@ -441,7 +475,7 @@ def run_spmv_case(name: str, A, dtype, rng) -> dict:
                         "spmv_ell_kernel")
     plain_ms = time_ms(plain, PLAIN_REPS, warmup=1)
     bound_ms, bound_by = spmv_bound(A.nnz, n, coef.element_size())
-    lib = spmv_library_ms(A, x)
+    lib, lib_device = spmv_library_ms(A, x)
     dt = str(coef.dtype).replace("torch.", "")
     row = {"kernel": "spmv_ell", "case": f"{name}/{dt}", "R": 1, "n": n,
            "nnz": A.nnz, "D": int(idx.shape[1]),
@@ -449,12 +483,14 @@ def run_spmv_case(name: str, A, dtype, rng) -> dict:
            "max_abs_err": diff, "max_rel_err": rel, "ms": ms,
            "kernel_device_ms": device_ms,
            "kernel_device_ms_cold_l2": cold_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+           "library_device_ms": lib_device}
     log(f"  spmv_ell             {row['case']:42s} D={row['D']:<3d} "
         f"err={rel:.2e} ms={ms:.4f} device_ms={device_ms} "
         f"cold_l2_ms={cold_ms} "
         f"plain_ms={plain_ms:.3f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by}) library_ms={lib}")
+        f"bound_ms={bound_ms:.5f} ({bound_by}) library_ms={lib} "
+        f"library_device_ms={lib_device}")
     return row
 
 
@@ -462,6 +498,9 @@ def phase_kernels(rng) -> tuple:
     cases = build_cases()
     by_name = {c["name"]: c for c in cases}
     rows = [run_case("sptrsv_groups", c, 1, rng) for c in cases]
+    for name in ("lung2_like(1.0)/no_rewriting",
+                 "torso2_like(1.0)/no_rewriting"):
+        rows.append(run_case("sptrsv_groups_stamped", by_name[name], 1, rng))
     for name in ("lung2_like(1.0)/no_rewriting",
                  "torso2_like(1.0)/avgLevelCost",
                  "banded(4096,40)/max_deps=4"):
@@ -770,6 +809,298 @@ def phase_pcg(rng, scale: float = 1.0) -> tuple:
     return rows, counts
 
 
+def smi_clocks() -> tuple:
+    """(current, max) SM clock in MHz from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cur, top = (float(v) for v in out.split(","))
+    return cur, top
+
+
+def busy_sm_mhz(launch, seconds: float = 2.0) -> float:
+    """Median SM clock (MHz) that nvidia-smi reads while `launch()` runs
+    back to back on the card."""
+    import threading
+    reads, stop = [], threading.Event()
+
+    def poll():
+        while not stop.wait(0.3):
+            reads.append(smi_clocks()[0])
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(100):
+                launch()
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        poller.join()
+    check(bool(reads), "nvidia-smi read no SM clock while the kernel ran")
+    return float(np.median(reads))
+
+
+def candidate_rows(report, calibrated) -> list:
+    """Per candidate of a PortfolioReport: the committed model's and the
+    freshly calibrated model's prediction (us), the measured us where
+    measured, the kernel's packed steps and the preamble's, launches."""
+    rows = []
+    for i, c in enumerate(report.candidates):
+        row = {"rank": i, "label": c.label, "error": c.error,
+               "predicted_us": c.predicted_us, "measured_us": c.measured_us,
+               "measure_note": c.measure_note, "steps": c.steps,
+               "preamble_steps": c.preamble_steps, "launches": c.launches,
+               "nnz_T": c.nnz_T, "padded_flops": c.padded_flops,
+               "memory_bytes": c.memory_bytes}
+        if c.error is None:
+            shape = {"steps": c.steps, "padded_flops": c.padded_flops,
+                     "memory_bytes": c.memory_bytes,
+                     "preamble_steps": c.preamble_steps,
+                     "launches": c.launches}
+            row["predicted_us_calibrated"] = calibrated.predict(
+                None, c.metrics, shape)["total_us"]
+        rows.append(row)
+    return rows
+
+
+def log_candidates(rows: list) -> None:
+    for r in rows:
+        if r["error"] is not None:
+            log(f"      {r['label']:45s} FAILED {r['error'][:60]}")
+            continue
+        meas = (f"{r['measured_us']:10.1f}" if r["measured_us"] is not None
+                else f"{'-':>10}")
+        log(f"      {r['label']:45s} pred_us={r['predicted_us']:10.1f} "
+            f"pred_cal_us={r['predicted_us_calibrated']:10.1f} "
+            f"meas_us={meas} steps={r['steps']:5d} "
+            f"pre_steps={r['preamble_steps']:4d} launches={r['launches']}")
+
+
+def phase_tuner(rng) -> tuple:
+    """The strategy-portfolio tuner on the card at full size (module doc,
+    phase 6).  Returns (result, launch counts of this path)."""
+    from repro_torch.core.portfolio import (StrategyPortfolio,
+                                            default_candidates,
+                                            default_cost_model_for,
+                                            strategy_label)
+    from repro_torch.iterative import cg, device_matvec
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.obs.calibrate import calibrate_on
+    from repro_torch.precond import Preconditioner
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.solver.levelset import pad_rhs
+    from repro_torch.solver.operator import orient_lower
+    from repro_torch.sparse import generators
+    import dataclasses
+
+    class ReusedCandidates(StrategyPortfolio):
+        """A portfolio that takes each candidate's transform and schedule
+        from an earlier report of the same matrix; it ranks, measures and
+        reports as any portfolio does."""
+
+        def __init__(self, report, **kwargs):
+            super().__init__(**kwargs)
+            self.built = {c.label: (c.ts, c.sched)
+                          for c in report.candidates if c.error is None}
+
+        def _compile(self, L, strat):
+            return self.built[strategy_label(strat)]
+
+    TriangularOperator.clear_memory_cache()
+    Preconditioner.clear_pair_decisions()
+    K.reset_launch_counts()
+    res = {"committed_cost_model": dataclasses.asdict(
+        default_cost_model_for("cuda"))}
+
+    # 1. K1's stamped profile of both no_rewriting sweeps, and the fit
+    t0 = time.perf_counter()
+    model, profiles = calibrate_on("cuda", 1.0, reps=3)
+    res["calibrate_s"] = time.perf_counter() - t0
+    res["calibrated_cost_model"] = dataclasses.asdict(model)
+    _, max_mhz = smi_clocks()
+    res["profiles"] = {}
+    for name, (op, prof) in profiles.items():
+        packed = op._staged().packed()
+        c = torch.as_tensor(op._ts.preamble(np.ones(op.n)),
+                            dtype=torch.float32, device=DEVICE)
+        c_pad = pad_rhs(c).contiguous()
+        x_stamped = K.sptrsv_groups_stamped(None, c_pad, n=op.n,
+                                            n_carry=packed.n_carry,
+                                            packed=packed).x
+        x_serving = K.sptrsv_groups(None, c_pad, n=op.n,
+                                    n_carry=packed.n_carry, packed=packed)
+        torch.cuda.synchronize()
+        check(torch.equal(x_stamped, x_serving),
+              f"{name}: the stamped K1's x differs from the serving K1's "
+              f"by {float((x_stamped - x_serving).abs().max()):.3e}")
+        share = prof.stamped_ms / prof.event_ms
+        check(abs(share - 1.0) <= 0.10,
+              f"{name}: the stamps sum to {prof.stamped_ms:.4f} ms, the "
+              f"launch's events to {prof.event_ms:.4f} ms")
+        # the clock nvidia-smi reads while the serving kernel runs (its
+        # launches here compare clocks, not the main path: not counted)
+        counted = dict(K.LAUNCHES)
+        busy_mhz = busy_sm_mhz(lambda: K.sptrsv_groups(
+            None, c_pad, n=op.n, n_carry=packed.n_carry, packed=packed))
+        K.LAUNCHES.update(counted)
+        check(abs(prof.clock_mhz / busy_mhz - 1.0) <= 0.10,
+              f"{name}: the stamps' cycles ran at {prof.clock_mhz:.0f} MHz, "
+              f"nvidia-smi read {busy_mhz:.0f} MHz while the kernel ran")
+        fit_us = (model.step_overhead_us * prof.num_steps
+                  + model.us_per_padded_flop * prof.step_padded_flops.sum()
+                  + model.us_per_byte * prof.step_bytes.sum())
+        row = {"steps": prof.num_steps, "event_ms": prof.event_ms,
+               "stamped_ms": prof.stamped_ms, "stamp_share": share,
+               "free_pass_ms": float(prof.step_ms[0]),
+               "clock_mhz": prof.clock_mhz, "busy_sm_mhz": busy_mhz,
+               "max_sm_mhz": max_mhz,
+               "launch_us": prof.launch_us,
+               "profile_total_ms": prof.total_ms(),
+               "fitted_total_ms": fit_us / 1e3,
+               "median_step_us": float(np.median(prof.step_ms[1:])) * 1e3,
+               "profile": prof.to_dict()}
+        res["profiles"][name] = row
+        log(f"  profile {name:12s} steps={prof.num_steps} event_ms="
+            f"{prof.event_ms:.4f} stamped_ms={prof.stamped_ms:.4f} "
+            f"({share:.3f}) free_pass_ms={row['free_pass_ms']:.4f} "
+            f"median_step_us={row['median_step_us']:.3f} clock_mhz="
+            f"{prof.clock_mhz:.0f} (nvidia-smi {busy_mhz:.0f} busy, "
+            f"{max_mhz:.0f} max) launch_us="
+            f"{prof.launch_us:.2f} fitted_total_ms={fit_us / 1e3:.4f} "
+            f"x stamped == serving")
+    log(f"  calibrated on lung2_like(1.0) and torso2_like(1.0) in "
+        f"{res['calibrate_s']:.1f} s: {res['calibrated_cost_model']}")
+    log(f"  committed constants: {res['committed_cost_model']}")
+
+    # 2. TriangularOperator.from_csr(L) at its default tune="auto" (model
+    # mode): every candidate measured, then from_csr in model mode and
+    # with measure_top_k=3 on the measured portfolio's transforms
+    mats = {m: getattr(generators, m)(1.0)
+            for m in ("lung2_like", "torso2_like")}
+    res["operators"] = {}
+
+    def served(op, mat, mode, secs, b) -> dict:
+        check(op.report is not None and op.engine == "cuda",
+              f"{mat}: from_csr(tune='auto') gave no report or ran on "
+              f"{op.engine}")
+        op.solve(b)
+        check(op.stats.last_residual <= REFINE_TOL,
+              f"{mat} {mode}: refined residual {op.stats.last_residual:.3e}")
+        fn = op.device_solve_fn()
+        bt = torch.as_tensor(b, dtype=torch.float32, device=DEVICE)
+        sweep_ms = time_ms(lambda: fn(bt), 20)
+        log(f"  from_csr({mat}(1.0)) {mode}: pick {op.strategy} in "
+            f"{secs:.1f} s, sweep {sweep_ms:.4f} ms")
+        return {"pick": op.strategy, "seconds": secs,
+                "tune_ms": op.report.tune_ms, "device_sweep_ms": sweep_ms,
+                "candidates": candidate_rows(op.report, model)}
+
+    for mat, L in mats.items():
+        b = rng.standard_normal(L.n_rows)
+        t0 = time.perf_counter()
+        L_eff = orient_lower(L, "lower", False)[0]
+        full = StrategyPortfolio(measure_top_k=len(default_candidates()),
+                                 device=DEVICE).tune(L_eff)
+        secs = time.perf_counter() - t0
+        rows = candidate_rows(full, model)
+        ok = [r for r in rows if r["error"] is None]
+        fastest = min(ok, key=lambda r: r["measured_us"])["label"]
+        entry = {"all_measured": {
+            "seconds": secs, "candidates": rows, "fastest": fastest,
+            "model_pick": min(ok, key=lambda r: r["predicted_us"])["label"],
+            "calibrated_pick": min(
+                ok, key=lambda r: r["predicted_us_calibrated"])["label"]}}
+        log(f"  every candidate of {mat}(1.0) measured in {secs:.1f} s: "
+            f"fastest {fastest}; model pick "
+            f"{entry['all_measured']['model_pick']}, calibrated model's "
+            f"{entry['all_measured']['calibrated_pick']}")
+        log_candidates(rows)
+        for mode, k in (("model", 0), ("measured_top3", 3)):
+            t0 = time.perf_counter()
+            op = TriangularOperator.from_csr(L, portfolio=ReusedCandidates(
+                full, measure_top_k=k, device=DEVICE))
+            entry[mode] = served(op, mat, f"measure_top_k={k}",
+                                 time.perf_counter() - t0, b)
+            log_candidates(entry[mode]["candidates"])
+        res["operators"][mat] = entry
+    # the entry point as a user calls it, on torso2 (lung2's ten
+    # transforms take two minutes): its pick is the model mode's
+    t0 = time.perf_counter()
+    op = TriangularOperator.from_csr(mats["torso2_like"])
+    entry = res["operators"]["torso2_like"]
+    entry["default"] = served(op, "torso2_like", "default",
+                              time.perf_counter() - t0,
+                              rng.standard_normal(op.n))
+    check(op.strategy == entry["model"]["pick"],
+          f"torso2_like: from_csr(L) picks {op.strategy}, the model mode "
+          f"on the same transforms {entry['model']['pick']}")
+
+    # 3. Preconditioner.ic0(A) at its default tune="auto" (the joint pair
+    # tuner), and IC(0)-PCG with its pick against no_rewriting and
+    # avgLevelCost on the same factors, timed in turns
+    res["pairs"] = {}
+    for mat, L in mats.items():
+        A = generators.spd_from_lower(L, seed=0)
+        n = A.n_rows
+        b_np = A.matvec(rng.standard_normal(n))
+        b = torch.as_tensor(b_np, device=DEVICE)
+        t0 = time.perf_counter()
+        P = Preconditioner.ic0(A)
+        secs = time.perf_counter() - t0
+        check(P.report is not None and P.device.type == "cuda",
+              f"{mat}: Preconditioner.ic0(A) gave no pair report or ran on "
+              f"{P.device}")
+        entry = {"pick": P.strategy, "seconds": secs,
+                 "tune_ms": P.report.tune_ms,
+                 "combined": P.report.combined}
+        precs = {"auto": P}
+        for strat in ("no_rewriting", "avgLevelCost"):
+            precs[strat] = Preconditioner.from_factors(P.factors, tune=strat)
+        mv = device_matvec(A)
+        for label, Q in precs.items():
+            r = cg(mv, b, preconditioner=Q, tol=PCG_TOL, maxiter=PCG_MAXITER)
+            resid = true_residual(A, r.x, b_np)
+            check(bool(r.converged) and resid <= PCG_TRUE_RESID,
+                  f"IC(0)-PCG on {mat} with {label} ({Q.strategy}): "
+                  f"converged={bool(r.converged)} after "
+                  f"{int(r.iterations)}, true residual {resid:.3e}")
+            entry[label] = {"strategy": Q.strategy,
+                            "iterations": int(r.iterations),
+                            "true_residual": resid}
+        check(entry["auto"]["iterations"] ==
+              entry["no_rewriting"]["iterations"],
+              f"{mat}: the auto pick takes {entry['auto']['iterations']} "
+              f"PCG iterations, no_rewriting "
+              f"{entry['no_rewriting']['iterations']}")
+        order = list(precs) + list(precs)[::-1]
+        staged = {label: [] for label in precs}
+        for label in order:
+            Q = precs[label]
+            staged[label].append(1e3 * median_solve_s(
+                lambda: cg(mv, b, preconditioner=Q, tol=PCG_TOL,
+                           maxiter=PCG_MAXITER)))
+        for label in precs:
+            entry[label]["staged_ms"] = staged[label]
+        res["pairs"][mat] = entry
+        log(f"  Preconditioner.ic0(spd_from_lower({mat}(1.0))): pick "
+            f"{P.strategy} in {secs:.1f} s; staged PCG ms (in turns) "
+            + ", ".join(f"{k} {v['strategy']} {v['iterations']} it "
+                        f"{'/'.join(f'{t:.3f}' for t in v['staged_ms'])}"
+                        for k, v in entry.items()
+                        if isinstance(v, dict) and "staged_ms" in v))
+    counts = dict(K.LAUNCHES)
+    log(f"  launches on the tuner's path: {counts}")
+    check(counts["sptrsv_groups"] > 0 and counts["sptrsv_groups_stamped"] > 0,
+          f"a kernel of the tuner's path was never launched: {counts}")
+    check(counts["plain"] == 0,
+          f"the plain version ran on the tuner's path: {counts}")
+    return res, counts
+
+
 def study_cases() -> list:
     """(label, schedule) of lung2's and torso2's L and IC(0) L^T at full
     scale: the forward and backward sweeps of the main paths."""
@@ -900,15 +1231,19 @@ def phase_ab(dirs: list, rng) -> list:
     return rows
 
 
-def kernels_line(krows: list, counts: dict, pcg_counts: dict) -> dict:
+def kernels_line(krows: list, counts: dict, pcg_counts: dict,
+                 tune_counts: dict) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the two main paths (phases 4 and 5)."""
+    launches summed over the three main paths (phases 4, 5 and 6)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
     spec = [
         ("sptrsv_groups", "sptrsv_level.cu", "lung2_like(1.0)/no_rewriting",
          1, "src/repro/kernels/sptrsv_level.py:98"),
+        ("sptrsv_groups_stamped", "sptrsv_level.cu",
+         "lung2_like(1.0)/no_rewriting", 1,
+         "src/repro/kernels/sptrsv_level.py:98"),
         ("sptrsv_groups_multi", "sptrsv_level.cu",
          "lung2_like(1.0)/no_rewriting", 8,
          "src/repro/kernels/sptrsv_level.py:149"),
@@ -924,7 +1259,8 @@ def kernels_line(krows: list, counts: dict, pcg_counts: dict) -> dict:
                    and r["case"] == case and r["R"] == R)
         out.append({"name": name, "route": "cuda", "source": here + src,
                     "replaces": replaces,
-                    "launches": counts.get(name, 0) + pcg_counts[name],
+                    "launches": (counts.get(name, 0) + pcg_counts[name]
+                                 + tune_counts.get(name, 0)),
                     "max_abs_err": max(r["max_abs_err"] for r in krows
                                        if r["kernel"] == name),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
@@ -976,14 +1312,20 @@ def main(argv=None) -> int:
     mrows, counts = phase_main_path(rng)
     log("== 5. preconditioned Krylov path")
     prows, pcg_counts = phase_pcg(rng)
-    line = kernels_line(krows, counts, pcg_counts)
+    log("== 6. the tuner at full size")
+    t6 = time.perf_counter()
+    tuner, tune_counts = phase_tuner(rng)
+    tuner["seconds"] = time.perf_counter() - t6
+    log(f"  phase 6 took {tuner['seconds']:.1f} s")
+    line = kernels_line(krows, counts, pcg_counts, tune_counts)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": krows,
          "main_path": mrows, "launches": counts, "krylov_path": prows,
-         "krylov_launches": pcg_counts, "kernels_line": line,
-         "seconds": time.perf_counter() - t_start}, indent=1))
+         "krylov_launches": pcg_counts, "tuner": tuner,
+         "tuner_launches": tune_counts, "kernels_line": line,
+         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(card["nvidia_smi"])
     log(json.dumps(line))

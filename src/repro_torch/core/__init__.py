@@ -5,7 +5,11 @@ from .strategies import (AvgLevelCost, ConstrainedAvgLevelCost,
                          CriticalPathRewrite, ManualEveryK, NoRewrite,
                          Strategy, StrategyStats, strategy_label)
 from .transform import TransformMetrics, TransformedSystem, transform
-from .portfolio import STRATEGY_REGISTRY, make_strategy
+from .portfolio import (STRATEGY_REGISTRY, PairReport, PortfolioCandidate,
+                        PortfolioReport, StrategyPortfolio,
+                        default_candidates, default_cost_model_for,
+                        make_strategy)
+from .portfolio import CostModel as TuningCostModel
 from .resilience import (HealthPolicy, NumericalHealthError,
                          PatternMismatchError, ResilienceError, RetryPolicy,
                          SolveGuard, resolve_health_policy)

@@ -7,7 +7,7 @@ the preconditioner's kernel:
     from repro_torch.iterative import cg
     from repro_torch.precond import Preconditioner
 
-    P = Preconditioner.ic0(A, tune="no_rewriting")
+    P = Preconditioner.ic0(A)                         # tuned pair
     res = cg(A, b, preconditioner=P, tol=1e-8)       # b: (n,) or (n, k)
 """
 from .krylov import SolveResult, bicgstab, cg, gmres

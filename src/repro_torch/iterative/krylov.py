@@ -5,7 +5,7 @@ preconditioning subsystem, whose inner kernel is the transformed SpTRSV
 (via `precond.Preconditioner`):
 
     A = generators.poisson2d_spd(64, 64)
-    P = Preconditioner.ic0(A, tune="no_rewriting")
+    P = Preconditioner.ic0(A)
     res = cg(A, b, preconditioner=P, tol=1e-8)
     res.x, res.iterations, res.residual_norms
 

@@ -129,6 +129,14 @@ __device__ __forceinline__ void consumer_sync(int threads) {
   asm volatile("barrier.sync 1, %0;" :: "r"(threads) : "memory");
 }
 
+// the SM's cycle counter; the "memory" clobber keeps the read in place
+// among the step's loads, stores and barriers
+__device__ __forceinline__ long long clock_stamp() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) :: "memory");
+  return t;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -280,13 +288,22 @@ __device__ __forceinline__ void solve_item(const int4 L, const int* w,
 // Threads [0, consumers) consume tiles; the last warp produces them.  An
 // item is a short lane and kW of its R columns (kW = 1, or 4 when R % 4 ==
 // 0), so a lane has R / kW items.
-template <bool kOneCol, int kW>
+//
+// kStamp (K1's stamped form, for the per-step profile) records clock64()
+// into stamps (S + 2 int64 for S tile steps): [0] at the kernel's entry,
+// [1] when the consumers start, [2 + k] when tile step k has ended: for a
+// wide step, thread 0 after the step's barrier; for a narrow step, warp
+// 0's lane 0 after its __syncwarp.  Warp 0 takes part in every step, so
+// it alone counts the steps (`ended`), and a step's span is stamp to
+// stamp on the critical path.  Without kStamp the stamps compile away.
+template <bool kOneCol, int kW, bool kStamp>
 __global__ void __launch_bounds__(1024, 1)
 sptrsv_tiles_kernel(const int4* __restrict__ tiles,
                     const int* __restrict__ tile_ptr, int num_tiles,
                     const int2* __restrict__ far,
                     const float* __restrict__ c, float* x, int R,
-                    int stage_bytes, int num_stages) {
+                    int stage_bytes, int num_stages,
+                    long long* __restrict__ stamps) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
@@ -298,6 +315,7 @@ sptrsv_tiles_kernel(const int4* __restrict__ tiles,
   const int per_lane = kOneCol ? 1 : R / kW;      // items of a short lane
 
   if (threadIdx.x == 0) {
+    if constexpr (kStamp) stamps[0] = clock_stamp();
     for (int s = 0; s < num_stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], cwarps);
@@ -340,6 +358,10 @@ sptrsv_tiles_kernel(const int4* __restrict__ tiles,
   unsigned phase = 0;
   int pending = 0;          // what ended last: 1 a wide step, 2 a narrow one
   int rot = 0, lrot = 0;    // items / long lanes of the step before the tile
+  int ended = 0;            // kStamp: tile steps ended (warp 0 counts)
+  if constexpr (kStamp) {
+    if (tid == 0) stamps[1] = clock_stamp();
+  }
   for (int t = 0; t < num_tiles; ++t) {
     mbar_wait(&full[s], phase);
     const int* w = reinterpret_cast<const int*>(ring + (size_t)s * stage_bytes);
@@ -351,7 +373,12 @@ sptrsv_tiles_kernel(const int4* __restrict__ tiles,
       // a run of narrow steps (each at most 32 lanes, none long): warp 0
       // solves them alone, step after step, ordering its writes with
       // __syncwarp; the other warps go on to the next tile
-      if (pending == 1) consumer_sync(consumers);
+      if (pending == 1) {
+        consumer_sync(consumers);
+        if constexpr (kStamp) {
+          if (tid == 0) stamps[1 + ended] = clock_stamp();
+        }
+      }
       if (warp == 0) {
         for (int pos = 0; pos < n_lanes;) {
           // the step's lanes end at the first lane flagged last
@@ -366,6 +393,10 @@ sptrsv_tiles_kernel(const int4* __restrict__ tiles,
                                     x);
           }
           __syncwarp();
+          if constexpr (kStamp) {
+            ++ended;
+            if (lane == 0) stamps[1 + ended] = clock_stamp();
+          }
           pos += len;
         }
       }
@@ -381,7 +412,12 @@ sptrsv_tiles_kernel(const int4* __restrict__ tiles,
         rec0 = rec[n_long + (kOneCol ? first : first / per_lane)];
         if constexpr (kOneCol) c0 = c[rec0.x];
       }
-      if (pending != 0) consumer_sync(consumers);
+      if (pending != 0) {
+        consumer_sync(consumers);
+        if constexpr (kStamp) {
+          if (pending == 1 && tid == 0) stamps[1 + ended] = clock_stamp();
+        }
+      }
 
       // long lanes: one warp each, a strided sum and a shuffle reduction;
       // the pairs of a row too long for a tile come from `far`
@@ -433,6 +469,7 @@ sptrsv_tiles_kernel(const int4* __restrict__ tiles,
         }
       }
       pending = ends ? 1 : 0;
+      if constexpr (kStamp) ended += ends;
       // rotate the next tile of this step by what this one handed out
       for (rot += items; rot >= consumers; rot -= consumers) {}
       for (lrot += n_long; lrot >= cwarps; lrot -= cwarps) {}
@@ -441,6 +478,12 @@ sptrsv_tiles_kernel(const int4* __restrict__ tiles,
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // the stage may be refilled
     if (++s == num_stages) { s = 0; phase ^= 1; }
+  }
+  if constexpr (kStamp) {
+    if (pending == 1) {                     // the last step was wide
+      consumer_sync(consumers);
+      if (tid == 0) stamps[1 + ended] = clock_stamp();
+    }
   }
 }
 
@@ -459,6 +502,45 @@ __global__ void sptrsv_free_rows_kernel(const int* __restrict__ row,
   }
 }
 
+bool bad_config(int threads, int stage_bytes, int num_stages, int R) {
+  return threads < 64 || threads > 1024 || threads % 32 != 0 ||
+         num_stages < 1 || num_stages > kMaxStages || stage_bytes % 16 != 0 ||
+         R < 1;
+}
+
+cudaError_t launch_free(const int* free_row, const float* free_dinv,
+                        int num_free, const float* c, float* x, int R,
+                        cudaStream_t st) {
+  if (num_free > 0) {
+    const long long items = (long long)num_free * R;
+    const int blocks = (int)((items + 255) / 256 < 1056 ? (items + 255) / 256
+                                                         : 1056);
+    sptrsv_free_rows_kernel<<<blocks, 256, 0, st>>>(free_row, free_dinv,
+                                                    num_free, c, x, R);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kOneCol, int kW, bool kStamp>
+cudaError_t launch_tiles(const void* tiles, const int* tile_ptr,
+                         int num_tiles, const void* far, const float* c,
+                         float* x, int R, int threads, int stage_bytes,
+                         int num_stages, long long* stamps,
+                         cudaStream_t st) {
+  if (num_tiles > 0) {
+    const int smem = kBarrierBytes + num_stages * stage_bytes;
+    auto kernel = sptrsv_tiles_kernel<kOneCol, kW, kStamp>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<1, threads, smem, st>>>(static_cast<const int4*>(tiles),
+                                     tile_ptr, num_tiles,
+                                     static_cast<const int2*>(far), c, x, R,
+                                     stage_bytes, num_stages, stamps);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the solve on `stream`: the dependency-free pass (when
@@ -475,9 +557,7 @@ extern "C" int sptrsv_tiles_launch(const void* tiles, const int* tile_ptr,
                                    int threads, int stage_bytes,
                                    int num_stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (threads < 64 || threads > 1024 || threads % 32 != 0 ||
-      num_stages < 1 || num_stages > kMaxStages || stage_bytes % 16 != 0 ||
-      R < 1) {
+  if (bad_config(threads, stage_bytes, num_stages, R)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R > 1 && R % 4 == 0 &&
@@ -485,27 +565,37 @@ extern "C" int sptrsv_tiles_launch(const void* tiles, const int* tile_ptr,
        15) != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);   // float4 path
   }
-  if (num_free > 0) {
-    const long long items = (long long)num_free * R;
-    const int blocks = (int)((items + 255) / 256 < 1056 ? (items + 255) / 256
-                                                         : 1056);
-    sptrsv_free_rows_kernel<<<blocks, 256, 0, st>>>(free_row, free_dinv,
-                                                    num_free, c, x, R);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = launch_free(free_row, free_dinv, num_free, c, x, R, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto launch = R == 1       ? launch_tiles<true, 1, false>
+                : R % 4 == 0 ? launch_tiles<false, 4, false>
+                             : launch_tiles<false, 1, false>;
+  return static_cast<int>(launch(tiles, tile_ptr, num_tiles, far, c, x, R,
+                                 threads, stage_bytes, num_stages, nullptr,
+                                 st));
+}
+
+// K1's stamped form, in two launches so that each can be timed by events:
+// the dependency-free pass alone, then the tile kernel with kStamp,
+// which writes num_steps + 2 clock64() stamps (see sptrsv_tiles_kernel)
+// for the tile steps' num_steps.  R == 1.
+extern "C" int sptrsv_free_launch(const int* free_row, const float* free_dinv,
+                                  int num_free, const float* c, float* x,
+                                  void* stream) {
+  return static_cast<int>(launch_free(free_row, free_dinv, num_free, c, x, 1,
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int sptrsv_tiles_stamped_launch(const void* tiles,
+                                           const int* tile_ptr, int num_tiles,
+                                           const void* far, const float* c,
+                                           float* x, int threads,
+                                           int stage_bytes, int num_stages,
+                                           long long* stamps, void* stream) {
+  if (bad_config(threads, stage_bytes, num_stages, 1) || stamps == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_tiles > 0) {
-    const int smem = kBarrierBytes + num_stages * stage_bytes;
-    auto kernel = R == 1       ? sptrsv_tiles_kernel<true, 1>
-                  : R % 4 == 0 ? sptrsv_tiles_kernel<false, 4>
-                               : sptrsv_tiles_kernel<false, 1>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<1, threads, smem, st>>>(static_cast<const int4*>(tiles),
-                                     tile_ptr, num_tiles,
-                                     static_cast<const int2*>(far), c, x, R,
-                                     stage_bytes, num_stages);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_tiles<true, 1, true>(
+      tiles, tile_ptr, num_tiles, far, c, x, 1, threads, stage_bytes,
+      num_stages, stamps, static_cast<cudaStream_t>(stream)));
 }

@@ -52,6 +52,11 @@ per-step loop in torch on the same packed arrays, writes of a step
 becoming visible only at the step's end, so a packing bug fails the CPU
 tests.
 
+K1's stamped form (`sptrsv_groups_stamped`) is the same kernel compiled
+with clock64() stamps at the end of every tile step, for the per-step
+profile (`repro_torch.obs.profile`); the free pass runs as its own launch
+so that events time it alone.
+
 Dispatch: a wrapper given CPU tensors runs the plain version
 (`kernels/ref.py`) and counts it under "plain"; given CUDA tensors it
 launches the kernel or raises.  `LAUNCHES` counts solves per entry point
@@ -72,14 +77,15 @@ from . import ref
 
 __all__ = ["PackedSchedule", "pack_groups", "pack_schedule",
            "unpack_tiles", "emulate_packed", "sptrsv_groups",
-           "sptrsv_groups_multi", "sptrsv_levels", "LAUNCHES",
-           "reset_launch_counts", "consumer_threads", "consumer_terms",
-           "items_per_lane", "LONG_DEPS", "FAR_DEPS"]
+           "sptrsv_groups_multi", "sptrsv_levels", "sptrsv_groups_stamped",
+           "StampedSolve", "step_flops", "step_bytes",
+           "LAUNCHES", "reset_launch_counts", "consumer_threads",
+           "consumer_terms", "items_per_lane", "LONG_DEPS", "FAR_DEPS"]
 
-# launches per entry point: K1, K2, K3 (which launches through K1), and
-# the plain version taken for CPU tensors
+# launches per entry point: K1, K2, K3 (which launches through K1), K1's
+# stamped form, and the plain version taken for CPU tensors
 LAUNCHES = {"sptrsv_groups": 0, "sptrsv_groups_multi": 0,
-            "sptrsv_levels": 0, "plain": 0}
+            "sptrsv_levels": 0, "sptrsv_groups_stamped": 0, "plain": 0}
 
 LONG_DEPS = 32              # a lane with more deps is summed by a warp,
 LONG_CHUNK = 32 * 8         # which gathers this many of them per round
@@ -127,6 +133,8 @@ class PackedSchedule:
     step_short, step_long     short lanes of each tile step, and its long
                               lanes' rounds of LONG_CHUNK deps (host
                               numpy), from which the launch sizes the block
+    step_rows, step_deps      rows and deps of each of the num_steps steps,
+                              the free pass's first (host numpy)
     """
 
     tiles: torch.Tensor
@@ -142,6 +150,8 @@ class PackedSchedule:
     num_stages: int
     step_short: np.ndarray
     step_long: np.ndarray
+    step_rows: np.ndarray
+    step_deps: np.ndarray
     num_lanes: int
     num_deps: int
     long_lanes: int
@@ -157,6 +167,11 @@ class PackedSchedule:
     @property
     def num_free(self) -> int:
         return int(self.free_row.shape[0])
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches of one solve: the free pass and the tiles."""
+        return int(self.num_free > 0) + int(self.num_tiles > 0)
 
     def tensors(self) -> tuple:
         return (self.tiles, self.tile_ptr, self.far, self.free_row,
@@ -443,6 +458,9 @@ def pack_groups(groups, n: int, n_carry: int) -> PackedSchedule:
         num_stages=int(min(MAX_STAGES, RING_BYTES // stage)),
         step_short=per_step((~t_long).astype(np.int64)),
         step_long=per_step(t_long * -(-t_cnt // LONG_CHUNK)),
+        step_rows=np.bincount(lvl, minlength=num_steps).astype(np.int64),
+        step_deps=np.bincount(lvl, weights=cnt.astype(np.float64),
+                              minlength=num_steps).astype(np.int64),
         num_lanes=int(row.size), num_deps=int(cnt.sum()),
         long_lanes=int(long_.sum()), widest_step=widest,
         pack_s=time.perf_counter() - t0)
@@ -455,6 +473,20 @@ def pack_schedule(sched) -> PackedSchedule:
         ((g.carry_in, g.carry_out) if g.carry_in is not None else ())
         for g in sched.groups)
     return pack_groups(leaves, sched.n, sched.n_carry)
+
+
+def step_flops(rows, deps):
+    """Operations of a step: an FMA per dep, a multiply per row (the
+    reference profiler's real flops, 2 x deps + finalized rows)."""
+    return 2 * np.asarray(deps, dtype=np.int64) + \
+        np.asarray(rows, dtype=np.int64)
+
+
+def step_bytes(rows, deps):
+    """Bytes a step needs: per row its index, 1/diag, c read and x
+    written; per dep its index and coefficient (float32)."""
+    return 16.0 * np.asarray(rows, dtype=np.float64) + \
+        8.0 * np.asarray(deps, dtype=np.float64)
 
 
 def unpack_tiles(packed: PackedSchedule) -> dict:
@@ -576,10 +608,9 @@ def consumer_threads(packed: PackedSchedule, R: int) -> int:
     return got
 
 
-def _launch(packed: PackedSchedule, c_pad: torch.Tensor) -> torch.Tensor:
-    """Check and launch the CUDA kernels on c_pad (n+1, R) float32."""
-    from .build import load_library
-    dev = c_pad.device
+def _check_launch(packed: PackedSchedule, c_pad: torch.Tensor) -> None:
+    """What the CUDA kernels take: c_pad (n+1, R) float32, contiguous, and
+    the packed schedule contiguous on c_pad's device."""
     if c_pad.dtype != torch.float32:
         raise TypeError(f"the CUDA SpTRSV kernel takes float32, got "
                         f"{c_pad.dtype}")
@@ -589,9 +620,16 @@ def _launch(packed: PackedSchedule, c_pad: torch.Tensor) -> torch.Tensor:
     if not c_pad.is_contiguous():
         raise ValueError("c_pad must be contiguous")
     for t in packed.tensors():
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"packed schedule must be contiguous on {dev}, "
-                             f"got a tensor on {t.device}")
+        if t.device != c_pad.device or not t.is_contiguous():
+            raise ValueError(f"packed schedule must be contiguous on "
+                             f"{c_pad.device}, got a tensor on {t.device}")
+
+
+def _launch(packed: PackedSchedule, c_pad: torch.Tensor) -> torch.Tensor:
+    """Check and launch the CUDA kernels on c_pad (n+1, R) float32."""
+    from .build import load_library
+    _check_launch(packed, c_pad)
+    dev = c_pad.device
     R = int(c_pad.shape[1])
     if items_per_lane(R) != R and c_pad.data_ptr() % 16:
         c_pad = c_pad.clone()           # float4 gathers need 16-byte rows
@@ -677,6 +715,109 @@ def sptrsv_groups_multi(groups, c_pad: torch.Tensor, *, n: int,
         return _plain(groups, c_pad, n, n_carry)
     return _kernel_solve(groups, c_pad, n, n_carry, packed,
                          "sptrsv_groups_multi")
+
+
+@dataclasses.dataclass
+class StampedSolve:
+    """What K1's stamped form returns: x (n,), and on the card the tile
+    kernel's clock64() stamps (num_steps - 1 + 2 int64 when the free pass
+    holds step 0: the kernel's entry, the consumers' start, then the end of
+    each tile step) with CUDA events around the free pass and around the
+    tile kernel.  On the CPU (the plain version) stamps and events are None.
+    """
+
+    x: torch.Tensor
+    stamps: torch.Tensor | None = None
+    free_events: tuple | None = None
+    tile_events: tuple | None = None
+
+    def event_ms(self) -> tuple:
+        """(free pass ms, tile kernel ms) by events; synchronizes.  A pass
+        that was not launched reads 0.0."""
+        out = []
+        for ev in (self.free_events, self.tile_events):
+            if ev is None:
+                out.append(0.0)
+            else:
+                ev[1].synchronize()
+                out.append(float(ev[0].elapsed_time(ev[1])))
+        return tuple(out)
+
+
+def _stamped_launch(packed: PackedSchedule, c_pad: torch.Tensor) \
+        -> StampedSolve:
+    """The free pass and the stamped tile kernel on c_pad (n+1, 1), each
+    between two CUDA events on the current stream."""
+    from .build import load_library
+    _check_launch(packed, c_pad)
+    dev = c_pad.device
+    x = torch.zeros((packed.n + 1, 1), dtype=torch.float32, device=dev)
+    tile_steps = packed.num_steps - (1 if packed.num_free else 0)
+    stamps = torch.zeros(tile_steps + 2, dtype=torch.int64, device=dev)
+    consumers = consumer_threads(packed, 1)
+    lib = load_library("sptrsv_level")
+    free_fn, tile_fn = lib.sptrsv_free_launch, lib.sptrsv_tiles_stamped_launch
+    free_fn.restype = tile_fn.restype = ctypes.c_int
+    free_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    tile_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
+    out = StampedSolve(x=x, stamps=stamps)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def timed(launch):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            err = launch()
+            ev[1].record()
+            if err != 0:
+                raise RuntimeError(
+                    f"stamped sptrsv launch failed: CUDA error {err} "
+                    f"(threads={consumers + 32}, tiles={packed.num_tiles}, "
+                    f"stage_bytes={packed.stage_bytes} x "
+                    f"{packed.num_stages})")
+            return ev
+
+        if packed.num_free:
+            out.free_events = timed(lambda: free_fn(
+                packed.free_row.data_ptr(), packed.free_dinv.data_ptr(),
+                packed.num_free, c_pad.data_ptr(), x.data_ptr(), stream))
+        if packed.num_tiles:
+            out.tile_events = timed(lambda: tile_fn(
+                packed.tiles.data_ptr(), packed.tile_ptr.data_ptr(),
+                packed.num_tiles, packed.far.data_ptr(), c_pad.data_ptr(),
+                x.data_ptr(), consumers + 32, packed.stage_bytes,
+                packed.num_stages, stamps.data_ptr(), stream))
+    return out
+
+
+def sptrsv_groups_stamped(groups, c_pad: torch.Tensor, *, n: int,
+                          n_carry: int,
+                          packed: PackedSchedule | None = None) \
+        -> StampedSolve:
+    """K1's stamped form: the solve of `sptrsv_groups` for c_pad (n+1,),
+    with the end of every tile step stamped by clock64() on the card
+    (`StampedSolve`).  The serving kernel is compiled without the stamps.
+    CPU tensors take the plain version and carry no stamps."""
+    if c_pad.ndim != 1:
+        raise ValueError(f"sptrsv_groups_stamped takes c_pad (n+1,), got "
+                         f"{tuple(c_pad.shape)}")
+    if c_pad.device.type == "cpu":
+        return StampedSolve(x=_plain(groups, c_pad, n, n_carry))
+    if packed is None:
+        if groups is None:
+            raise ValueError("pass the width groups or their packed form")
+        packed = pack_groups(groups, n, n_carry).to(c_pad.device)
+    if packed.n != n or packed.n_carry != n_carry:
+        raise ValueError(f"packed schedule is for n={packed.n}, n_carry="
+                         f"{packed.n_carry}, not n={n}, n_carry={n_carry}")
+    out = _stamped_launch(packed, c_pad.reshape(-1, 1).contiguous())
+    LAUNCHES["sptrsv_groups_stamped"] += 1
+    out.x = out.x[:n, 0]
+    return out
 
 
 _LEGACY_PACKED = collections.OrderedDict()   # key -> (array refs, packed)

@@ -1,0 +1,346 @@
+"""Per-step schedule profiler: where does a sweep's time go?
+
+Port of `repro.obs.profile` (`ScheduleProfile`, `profile_schedule`,
+`profile_operator`).  It is the measurement the tuner's cost constants
+come from: `CostModel.calibrate(profile)` (repro_torch.core.portfolio)
+fits them to one.  Two engines, two methods:
+
+* **"torch" (the plain engine, on the CPU).**  As the reference does: the
+  schedule runs ONE STEP AT A TIME through the plain step body
+  (`levelset._step_body`), and each step's wall time is kept, the minimum
+  over reps.  The step columns are the schedule's: padded and real FLOPs
+  of its width groups, and its bytes spread evenly over the steps.
+* **"cuda" (the card).**  Timing steps one launch at a time would measure
+  the launch (microseconds) instead of the step (K1 runs one in under a
+  microsecond inside one launch).  So one launch of K1's stamped form
+  (`kernels.sptrsv_level.sptrsv_groups_stamped`) fills `step_ms`: the
+  kernel stamps clock64() at the end of every packed step, and the cycles
+  become time at the launch's own rate, its CUDA-event time over its
+  cycles from entry to the last step.  The free first-level pass is its
+  own launch, timed by events, and is step 0.  The step columns describe
+  the packed steps: their rows and deps (`step_flops`, `step_bytes`);
+  the free pass's are zero, since it runs on every SM and its cost is its
+  launch (`CudaEngine.sweep_shape` charges it so).
+  The profile also measures the host's time per launch (`launch_us`: the
+  time to enqueue a served solve, the card running behind, over its
+  launches), which `calibrate` turns into the per-launch charge.
+
+Clocks are injected (`clock=time.perf_counter` by default) for the CPU
+method.  Not ported yet: `ProfilingEngine`, the sharded path's collective
+split (ROADMAP.md, queue 1, items 10 and 8) and the `_STEP_FAULT` seam of
+the fault injectors (item 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+__all__ = ["ScheduleProfile", "profile_schedule", "profile_operator",
+           "merge_profiles", "DEFAULT_MS_BUCKETS"]
+
+# step-time histogram bounds (ms), the reference's shared latency buckets
+DEFAULT_MS_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0,
+                      50.0, 100.0, 250.0, 1000.0, 5000.0)
+
+
+@dataclasses.dataclass
+class ScheduleProfile:
+    """One profiled execution of a schedule (module doc).
+
+    `step_ms` is min-over-reps per step; `collective_ms` is None (no
+    sharded path yet); the flop/byte columns are the steps the engine
+    executed.  On the card: `launch_us` is the host's time per launch,
+    `event_ms` the stamped tile kernel's event time, `stamped_ms` the sum
+    of its steps' stamps, `clock_mhz` the rate its cycles ran at (all None
+    on the CPU).
+    """
+
+    engine: str
+    num_steps: int
+    reps: int
+    step_ms: np.ndarray
+    collective_ms: np.ndarray | None
+    step_padded_flops: np.ndarray
+    step_real_flops: np.ndarray
+    step_bytes: np.ndarray
+    width_buckets: list
+    launch_us: float | None = None
+    event_ms: float | None = None
+    stamped_ms: float | None = None
+    clock_mhz: float | None = None
+
+    @property
+    def compute_ms(self):
+        """Per-step compute component (collective subtracted, clamped at
+        0); None when the profile has no collective split."""
+        if self.collective_ms is None:
+            return None
+        return np.maximum(self.step_ms - self.collective_ms, 0.0)
+
+    def total_ms(self) -> float:
+        return float(self.step_ms.sum())
+
+    def critical_path_share(self) -> float:
+        """Share of total time the serialized step floor (S x fastest
+        step) accounts for: 1.0 = perfectly uniform steps, low values =
+        a few straggler steps dominate."""
+        tot = float(self.step_ms.sum())
+        if not self.num_steps or tot <= 0:
+            return float("nan")
+        return float(self.num_steps * self.step_ms.min() / tot)
+
+    def utilization(self) -> float:
+        """Real / padded FLOPs over the whole schedule."""
+        p = sum(b["padded_flops"] for b in self.width_buckets)
+        r = sum(b["real_flops"] for b in self.width_buckets)
+        return r / p if p else 0.0
+
+    def slowest_steps(self, k: int = 5) -> list:
+        order = np.argsort(self.step_ms, kind="stable")[::-1]
+        return [int(i) for i in order[:k]]
+
+    def step_histogram(self, bounds=DEFAULT_MS_BUCKETS) -> dict:
+        """Step-time histogram over fixed upper-inclusive bounds (ms);
+        the final count is the +Inf overflow."""
+        counts = [0] * (len(bounds) + 1)
+        for v in self.step_ms:
+            i = len(bounds)
+            for j, b in enumerate(bounds):
+                if v <= b:
+                    i = j
+                    break
+            counts[i] += 1
+        return {"bounds": list(bounds), "counts": counts}
+
+    def to_dict(self) -> dict:
+        return {
+            "engine": self.engine, "num_steps": self.num_steps,
+            "reps": self.reps,
+            "total_ms": self.total_ms(),
+            "critical_path_share": self.critical_path_share(),
+            "utilization": self.utilization(),
+            "step_ms": [float(v) for v in self.step_ms],
+            "collective_ms": (None if self.collective_ms is None else
+                              [float(v) for v in self.collective_ms]),
+            "step_padded_flops": [int(v) for v in self.step_padded_flops],
+            "step_real_flops": [int(v) for v in self.step_real_flops],
+            "step_bytes": [float(v) for v in self.step_bytes],
+            "width_buckets": list(self.width_buckets),
+            "step_histogram": self.step_histogram(),
+            "slowest_steps": self.slowest_steps(),
+            "launch_us": self.launch_us, "event_ms": self.event_ms,
+            "stamped_ms": self.stamped_ms, "clock_mhz": self.clock_mhz,
+        }
+
+
+def merge_profiles(profiles) -> ScheduleProfile:
+    """One profile whose steps are all of `profiles`' steps, in order, so
+    that `calibrate` fits one set of constants to several schedules;
+    `launch_us` is the median of theirs (None when none has one)."""
+    profiles = list(profiles)
+    if not profiles:
+        raise ValueError("no profile to merge")
+
+    def cat(name):
+        return np.concatenate([np.asarray(getattr(p, name))
+                               for p in profiles])
+
+    launch = [p.launch_us for p in profiles if p.launch_us is not None]
+    return ScheduleProfile(
+        engine="+".join(sorted({p.engine for p in profiles})),
+        num_steps=sum(p.num_steps for p in profiles),
+        reps=min(p.reps for p in profiles), step_ms=cat("step_ms"),
+        collective_ms=None, step_padded_flops=cat("step_padded_flops"),
+        step_real_flops=cat("step_real_flops"), step_bytes=cat("step_bytes"),
+        width_buckets=[b for p in profiles for b in p.width_buckets],
+        launch_us=float(np.median(launch)) if launch else None)
+
+
+def _schedule_columns(sched):
+    """(per-step padded flops, per-step real flops, per-step bytes,
+    width buckets) for the schedule as executed."""
+    S = sched.num_steps
+    ppf = 0
+    rf = np.zeros(S, dtype=np.int64)
+    buckets = []
+    for g in sched.groups:
+        s_, c_, d_ = g.dep_idx.shape
+        padded = 2 * s_ * c_ * d_ + s_ * c_
+        real = int(2 * (g.dep_coef != 0).sum() + g.is_final.sum())
+        ppf += 2 * c_ * d_ + c_
+        rf += (2 * (g.dep_coef != 0).sum(axis=(1, 2))
+               + g.is_final.sum(axis=1))
+        buckets.append({
+            "width": int(g.width), "lanes": int(c_),
+            "padded_flops": int(padded), "real_flops": real,
+            "utilization": real / padded if padded else 0.0})
+    pf = np.full(S, ppf, dtype=np.int64)
+    sb = np.full(S, sched.memory_bytes() / max(1, S), dtype=np.float64)
+    return pf, rf, sb, buckets
+
+
+def _profile_stepwise(ds, c: torch.Tensor, *, reps, warmup, clock):
+    """The plain engine, one step at a time: (ScheduleProfile, x)."""
+    from ..solver.levelset import _step_body, pad_rhs
+    host = ds.host
+    groups = ds.groups
+    S = host.num_steps
+    n, n_carry = ds.n, ds.n_carry
+    c_pad = pad_rhs(c)
+    tail = tuple(c_pad.shape[1:])
+    per_step = [tuple(tuple(l[s] for l in g) for g in groups)
+                for s in range(S)]
+
+    def run(record):
+        x = torch.zeros((n + 1,) + tail, dtype=c_pad.dtype,
+                        device=c_pad.device)
+        carry = torch.zeros((n_carry + 2,) + tail, dtype=c_pad.dtype,
+                            device=c_pad.device)
+        for s, sg in enumerate(per_step):
+            t0 = clock()
+            _step_body(x, carry, c_pad, sg)
+            if record is not None:
+                record[s] = min(record[s], clock() - t0)
+        return x[:n]
+
+    for _ in range(max(0, warmup)):
+        run(None)
+    rec = np.full(S, np.inf)
+    x = None
+    for _ in range(max(1, reps)):
+        x = run(rec)
+    step_ms = np.where(np.isfinite(rec), rec, 0.0) * 1e3
+    pf, rf, sb, buckets = _schedule_columns(host)
+    prof = ScheduleProfile(
+        engine="stepwise", num_steps=S, reps=max(1, reps), step_ms=step_ms,
+        collective_ms=None, step_padded_flops=pf, step_real_flops=rf,
+        step_bytes=sb, width_buckets=buckets)
+    return prof, x
+
+
+def _profile_stamped(ds, c: torch.Tensor, *, reps, warmup, engine):
+    """K1's stamped form on the card: (ScheduleProfile, x)."""
+    from ..kernels import sptrsv_level as K
+    from ..solver.levelset import pad_rhs
+    if c.ndim != 1:
+        raise ValueError(f"the stamped profile takes c (n,), got "
+                         f"{tuple(c.shape)}")
+    packed = ds.packed()
+    c_pad = pad_rhs(c.to(torch.float32)).contiguous()
+
+    def stamped():
+        return K.sptrsv_groups_stamped(None, c_pad, n=ds.n,
+                                       n_carry=ds.n_carry, packed=packed)
+
+    # the solves go out back to back, one warm-up at least ahead of the
+    # timed ones: each timed launch's events are recorded while the card
+    # is still busy, so they time the kernels and not the host's gaps
+    # between an event and its launch
+    runs = [stamped() for _ in range(max(1, warmup) + max(1, reps))]
+    torch.cuda.synchronize(c_pad.device)
+    S = packed.num_steps
+    rec = np.full(S, np.inf)
+    event_ms, stamped_ms, mhz, x = np.inf, 0.0, 0.0, None
+    for run in runs[max(1, warmup):]:
+        free_ms, tile_ms = run.event_ms()
+        st = run.stamps.cpu().numpy().astype(np.int64)
+        cycles = int(st[-1] - st[0])        # the kernel's entry to its end
+        ms_per_cycle = tile_ms / cycles if cycles > 0 else 0.0
+        spans = np.diff(st[1:]) * ms_per_cycle
+        steps = np.concatenate([[free_ms], spans]) if packed.num_free \
+            else spans
+        if steps.size != S or (spans < 0).any():
+            raise RuntimeError(f"the stamped kernel wrote {spans.size} "
+                               f"step spans for {S} steps, or a negative "
+                               "one: its stamps are out of order")
+        rec = np.minimum(rec, steps)
+        if tile_ms < event_ms:
+            event_ms, x = tile_ms, run.x
+            stamped_ms = float(spans.sum())
+            mhz = cycles / tile_ms / 1e3 if tile_ms > 0 else 0.0
+    launch_us = _launch_us(engine.compile(ds), c, packed.launches)
+    rows, deps = packed.step_rows.copy(), packed.step_deps.copy()
+    if packed.num_free:
+        rows[0] = deps[0] = 0   # the free pass: a launch, not rows
+    flops = K.step_flops(rows, deps)
+    prof = ScheduleProfile(
+        engine="cuda", num_steps=S, reps=max(1, reps), step_ms=rec,
+        collective_ms=None, step_padded_flops=flops, step_real_flops=flops,
+        step_bytes=K.step_bytes(rows, deps),
+        width_buckets=[{"width": int(packed.widest_step),
+                        "lanes": int(packed.num_lanes),
+                        "padded_flops": int(flops.sum()),
+                        "real_flops": int(flops.sum()),
+                        "utilization": 1.0}],
+        launch_us=launch_us, event_ms=float(event_ms),
+        stamped_ms=stamped_ms, clock_mhz=float(mhz))
+    return prof, x
+
+
+def _launch_us(fn, c: torch.Tensor, launches: int, calls: int = 20) \
+        -> float:
+    """Host time per launch of the served solve `fn(c)`: the host's time
+    to enqueue `calls` calls back to back (the card runs behind it, so no
+    call waits for the device), per call, over the call's launches."""
+    fn(c)
+    torch.cuda.synchronize(c.device)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(c)
+    host = (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize(c.device)
+    return host * 1e6 / max(1, launches)
+
+
+def profile_schedule(sched, c, *, reps: int = 2, warmup: int = 1,
+                     clock=time.perf_counter, device=None,
+                     engine=None) -> ScheduleProfile:
+    """Profile one schedule execution per step (module doc).
+
+    sched: a LevelSchedule or DeviceSchedule; c: the preamble-applied
+    right-hand side (n,) (numpy or tensor; (n, k) on the CPU).  device:
+    where to run ("cuda" when None, as every entry point of the port;
+    a DeviceSchedule's own device wins); engine: "torch" profiles step by
+    step, "cuda" by K1's stamps (None: the device's default).
+    """
+    return _profile_and_solve(sched, c, reps=reps, warmup=warmup,
+                              clock=clock, device=device, engine=engine)[0]
+
+
+def _profile_and_solve(sched, c, *, reps, warmup, clock, device, engine):
+    from ..solver.engines import resolve_engine
+    from ..solver.levelset import (DeviceSchedule, resolve_device,
+                                   to_device, torch_dtype)
+    if isinstance(sched, DeviceSchedule):
+        ds = sched
+    else:
+        ds = to_device(sched, resolve_device(device))
+    eng = resolve_engine(engine, device=ds.device)
+    eng._require_dtype(ds)
+    ct = torch.as_tensor(np.asarray(c) if not isinstance(c, torch.Tensor)
+                         else c, device=ds.device).to(torch_dtype(ds.dtype))
+    if eng.name == "cuda":
+        return _profile_stamped(ds, ct, reps=reps, warmup=warmup,
+                                engine=eng)
+    if eng.name == "torch":
+        return _profile_stepwise(ds, ct, reps=reps, warmup=warmup,
+                                 clock=clock)
+    raise ValueError(f"no per-step profile for engine {eng.name!r}; "
+                     "profiled engines: 'torch', 'cuda'")
+
+
+def profile_operator(op, b=None, *, reps: int = 2, warmup: int = 1,
+                     clock=time.perf_counter) -> ScheduleProfile:
+    """Profile a built TriangularOperator's main schedule on its device
+    with its engine, the operator's own orientation + preamble applied to
+    `b` (default: ones), so the profiled c is exactly what a served solve
+    would feed the schedule."""
+    v = np.ones(op.n, dtype=np.float64) if b is None else np.asarray(b)
+    if op._reversed:
+        v = v[::-1]
+    c = op._ts.preamble(v)
+    return profile_schedule(op._staged(), c, reps=reps, warmup=warmup,
+                            clock=clock, engine=op._engine)

@@ -6,7 +6,7 @@ the card:
 
     from repro_torch.precond import Preconditioner, ic0, ilu0
 
-    P = Preconditioner.ic0(A, tune="no_rewriting")   # factor + operators
+    P = Preconditioner.ic0(A)        # factor, tune the pair, operators
     z = P(r)                         # z = M^-1 r (numpy or torch tensor)
 
 `ic0`/`ilu0` alone return the raw factors (FactorResult).  The consumer

@@ -1,15 +1,21 @@
-"""Preconditioner facade: factor A, build the operator pair, serve M^-1.
+"""Preconditioner facade: factor A, tune the pair, serve M^-1.
 
-Port of `repro.precond.api` for a fixed strategy:
+Port of `repro.precond.api`:
 
-    P = Preconditioner.ic0(A, tune="no_rewriting")   # SPD:     M = L L^T
-    P = Preconditioner.ilu0(A, tune="avgLevelCost")  # general: M = L U
+    P = Preconditioner.ic0(A)                        # SPD:     M = L L^T
+    P = Preconditioner.ilu0(A, device="cpu")         # general: M = L U
     z = P(r)                                         # z = M^-1 r
 
 1. `precond.factorize` produces the numeric zero-fill factor(s), with
    breakdown detection and diagonal shifting (`P.factors.shift`).
-2. Two cached `TriangularOperator`s are built with the named strategy:
-   forward `L`, backward `L^T` (ic0, transpose=True) or `U` (ilu0,
+2. With `tune="auto"` (the default) the strategy portfolio tunes the PAIR
+   jointly (`StrategyPortfolio.tune_pair`): one strategy minimizing the
+   summed cost of both sweeps, memoized under the system matrix's
+   fingerprint and the tuning configuration; with `measure_top_k > 0`
+   the model's top-k and the no_rewriting baseline are re-timed as the
+   composed M^-1 that a Krylov loop runs.
+3. Two cached `TriangularOperator`s are built with the strategy: forward
+   `L`, backward `L^T` (ic0, transpose=True) or `U` (ilu0,
    side="upper"), on the card unless the caller passes `device="cpu"`.
 
 `P(r)` dispatches on the input: a torch tensor goes through
@@ -17,29 +23,27 @@ Port of `repro.precond.api` for a fixed strategy:
 numpy array through the host `apply` (float64 numpy out).
 
 Not ported yet, each raising NotImplementedError (ROADMAP.md, queue 1):
-`tune="auto"` (the joint pair tuner, item 1), `refactor` (needs
-`update_values`, item 3) and `mesh=` (sharded sweeps, item 8).
+`refactor` (needs `update_values`, item 3) and `mesh=` (sharded sweeps,
+item 8).
 """
 from __future__ import annotations
+
+import collections
+import dataclasses as _dc
+import hashlib
+import threading
+import time
 
 import numpy as np
 import torch
 
-from ..solver.operator import TriangularOperator
+from ..solver.operator import (TriangularOperator, candidate_sweep_fn,
+                               matrix_fingerprint, orient_lower)
 from ..sparse.csr import CSR
 from . import factorize
 from .factorize import FactorResult
 
 __all__ = ["Preconditioner", "IdentityPreconditioner"]
-
-
-def _require_strategy(tune) -> None:
-    if tune == "auto":
-        raise NotImplementedError(
-            "tune='auto' needs the joint pair tuner (StrategyPortfolio."
-            "tune_pair), which the port does not have yet (ROADMAP.md, "
-            "queue 1, item 1: tuner); pass a strategy name such as "
-            "'no_rewriting' or 'avgLevelCost'")
 
 
 class Preconditioner:
@@ -52,18 +56,28 @@ class Preconditioner:
     factors:  the FactorResult (factor CSRs, shift, attempts).
     forward:  TriangularOperator for the L sweep.
     backward: TriangularOperator for the L^T / U sweep.
+    report:   slim PairReport when tune="auto" ran, else None.
     strategy: the strategy label both operators were compiled with.
     device:   the operators' device.
     """
 
+    # (system fingerprint, kind, config) -> (Strategy, slim PairReport):
+    # re-preconditioning the same A re-uses the pair decision without
+    # re-running the portfolio.  Bounded LRU; the tuning itself runs
+    # outside the lock
+    _pair_decisions: collections.OrderedDict = collections.OrderedDict()
+    _pair_decisions_max: int = 16
+    _pair_lock = threading.RLock()
+
     def __init__(self, factors: FactorResult, forward: TriangularOperator,
-                 backward: TriangularOperator):
+                 backward: TriangularOperator, report=None):
         if forward.device != backward.device:
             raise ValueError(f"the two sweeps lie on different devices: "
                              f"{forward.device} and {backward.device}")
         self.factors = factors
         self.forward = forward
         self.backward = backward
+        self.report = report
         self.strategy = forward.strategy
         self.device = forward.device
         self._device_fns: dict = {}
@@ -77,39 +91,49 @@ class Preconditioner:
         check_symmetric) ride in `factor_kwargs`; everything else is
         forwarded to `from_factors`.
         """
-        _require_strategy(tune)
         factor_kwargs = kwargs.pop("factor_kwargs", None) or {}
         fac = factorize.ic0(A, **factor_kwargs)
-        return cls.from_factors(fac, tune=tune, **kwargs)
+        return cls.from_factors(fac, tune=tune, system=A, **kwargs)
 
     @classmethod
     def ilu0(cls, A: CSR, tune="auto", **kwargs) -> "Preconditioner":
         """Incomplete-LU preconditioner M = L U for general square A."""
-        _require_strategy(tune)
         factor_kwargs = kwargs.pop("factor_kwargs", None) or {}
         fac = factorize.ilu0(A, **factor_kwargs)
-        return cls.from_factors(fac, tune=tune, **kwargs)
+        return cls.from_factors(fac, tune=tune, system=A, **kwargs)
 
     @classmethod
-    def from_factors(cls, fac: FactorResult, tune="auto", *,
+    def from_factors(cls, fac: FactorResult, tune="auto", *, system=None,
                      chunk: int = 256, max_deps: int = 16, dtype=np.float32,
                      engine=None, device=None, mesh=None,
-                     cache: bool = True) -> "Preconditioner":
+                     cache: bool = True, cost_model=None,
+                     measure_top_k: int = 0) -> "Preconditioner":
         """Build the operator pair for an existing FactorResult.
 
-        tune:   a stable strategy name or Strategy instance; both operators
-                use it.  "auto" (the joint pair tuner, the reference's
-                default) raises NotImplementedError.
+        tune:   "auto" — joint pair tuning through the strategy portfolio
+                (memoized per system and configuration when `system` is
+                given); a stable strategy name or Strategy instance — both
+                operators use it directly.
+        system: the original matrix A (the pair-decision memo's key;
+                without it "auto" still tunes, and never memoizes).
         device: "cuda" (the default when None) or "cpu"; None without CUDA
                 raises RuntimeError.
+        cost_model/measure_top_k: as for `TriangularOperator.from_csr`;
+                the measured pair mode times the composed M^-1 (module
+                doc).
         mesh:   raises NotImplementedError (module doc).
         Remaining arguments match TriangularOperator.from_csr.
         """
-        _require_strategy(tune)
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= needs the port's sharded solves (ROADMAP.md, queue "
                 "1, item 8: sharded solves)")
+        report = None
+        if isinstance(tune, str) and tune == "auto":
+            tune, report = cls._pair_decision(
+                fac, system, chunk=chunk, max_deps=max_deps, dtype=dtype,
+                engine=engine, device=device, cost_model=cost_model,
+                measure_top_k=measure_top_k)
         op_kw = dict(chunk=chunk, max_deps=max_deps, dtype=dtype,
                      engine=engine, device=device, cache=cache)
         forward = TriangularOperator.from_csr(fac.L, tune, side="lower",
@@ -120,7 +144,120 @@ class Preconditioner:
         else:
             backward = TriangularOperator.from_csr(fac.U, tune, side="upper",
                                                    transpose=False, **op_kw)
-        return cls(fac, forward, backward)
+        return cls(fac, forward, backward, report=report)
+
+    @classmethod
+    def _pair_decision(cls, fac: FactorResult, system, *, chunk, max_deps,
+                       dtype, engine, device, cost_model, measure_top_k):
+        """Joint pair tuning, memoized under the system fingerprint.
+
+        Model ranking comes from `StrategyPortfolio.tune_pair`; when
+        `measure_top_k > 0` the model's top-k candidates PLUS the
+        `no_rewriting` baseline are re-timed as the composed M^-1 a Krylov
+        loop runs (`_measure_pair`), so the pick is never slower than
+        no_rewriting up to timer noise.  The decision depends on the
+        engine (what a step costs it) and the cost model, both in the key.
+        """
+        from ..core.portfolio import (StrategyPortfolio,
+                                      default_cost_model_for)
+        from ..solver.engines import resolve_engine
+        from ..solver.levelset import resolve_device
+        dev = resolve_device(device)
+        eng = resolve_engine(engine, device=dev)
+        if cost_model is None:
+            cost_model = default_cost_model_for(eng)
+        key = None
+        if system is not None:
+            cfg = (fac.kind, chunk, max_deps, np.dtype(dtype).name,
+                   measure_top_k, eng.cache_token(), str(dev),
+                   tuple(sorted(_dc.asdict(cost_model).items())))
+            key = matrix_fingerprint(system) + "-" + hashlib.sha256(
+                repr(cfg).encode()).hexdigest()[:16]
+            with cls._pair_lock:
+                hit = cls._pair_decisions.get(key)
+                if hit is not None:
+                    cls._pair_decisions.move_to_end(key)
+                    return hit
+        fwd_sys, _ = orient_lower(fac.L, "lower", False)
+        if fac.kind == "ic0":
+            bwd_sys, bwd_rev = orient_lower(fac.L, "lower", True)
+        else:
+            bwd_sys, bwd_rev = orient_lower(fac.U, "upper", False)
+        tuner = StrategyPortfolio(chunk=chunk, max_deps=max_deps,
+                                  dtype=dtype, cost_model=cost_model,
+                                  measure_top_k=0, engine=eng, device=dev)
+        pair = tuner.tune_pair(fwd_sys, bwd_sys)
+        best_label = pair.best_label
+        if measure_top_k > 0:
+            best_label = cls._measure_pair(pair, bwd_rev, engine=eng,
+                                           device=dev, dtype=dtype,
+                                           top_k=measure_top_k)
+        best = next(c for c in pair.fwd.candidates if c.label == best_label)
+        decision = (best.strategy, pair.slim())
+        if key is not None:
+            with cls._pair_lock:
+                cls._pair_decisions[key] = decision
+                cls._pair_decisions.move_to_end(key)
+                while len(cls._pair_decisions) > cls._pair_decisions_max:
+                    cls._pair_decisions.popitem(last=False)
+        return decision
+
+    @staticmethod
+    def _measure_pair(pair, bwd_reversed: bool, *, engine, device, dtype,
+                      top_k: int, reps: int = 3) -> str:
+        """Re-rank candidate labels by the measured wall time of one
+        composed M^-1 application (both sweeps as `device_solve_fn` serves
+        them, back to back; wall time around work that ends in a
+        synchronize, minimum over reps, warm-up outside the timer);
+        updates pair.combined in place and returns the winner.  The
+        no_rewriting baseline is always measured."""
+        from ..solver.levelset import torch_dtype
+        labels = [c["label"] for c in pair.combined[:top_k]]
+        if "no_rewriting" not in labels and any(
+                c["label"] == "no_rewriting" for c in pair.combined):
+            labels.append("no_rewriting")
+        by_label_f = {c.label: c for c in pair.fwd.candidates
+                      if c.error is None}
+        by_label_b = {c.label: c for c in pair.bwd.candidates
+                      if c.error is None}
+        n = pair.fwd.matrix["n"]
+        r = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
+                            dtype=torch_dtype(dtype), device=device)
+
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+        measured = {}
+        for label in labels:
+            cf, cb = by_label_f[label], by_label_b[label]
+            f = candidate_sweep_fn(cf.ts, cf.sched, engine, device)
+            g = candidate_sweep_fn(cb.ts, cb.sched, engine, device,
+                                   bwd_reversed)
+            g(f(r))                             # warm-up outside the timer
+            sync()
+            best = float("inf")
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                g(f(r))
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            measured[label] = best * 1e6
+        for c in pair.combined:
+            if c["label"] in measured:
+                # total_us becomes the measured composed-apply time;
+                # fwd_us/bwd_us stay as the per-side MODEL estimates
+                c.update(measured=True,
+                         total_us=round(measured[c["label"]], 1))
+        pair.combined.sort(key=lambda c: (not c["measured"], c["total_us"]))
+        winner = min(measured, key=measured.get)
+        pair.best_label = winner
+        return winner
+
+    @classmethod
+    def clear_pair_decisions(cls) -> None:
+        with cls._pair_lock:
+            cls._pair_decisions.clear()
 
     def refactor(self, new_A: CSR, **factor_kwargs) -> "Preconditioner":
         """Numeric-only re-preconditioning for a new A on the same pattern:

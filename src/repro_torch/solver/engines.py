@@ -14,6 +14,10 @@ Two engines are registered:
     (`kernels/sptrsv_level.py`), float32 only like the reference's Pallas
     engine; `available()` is False without CUDA.
 
+Each engine also says what one sweep costs it, for the tuner
+(`sweep_shape`): the plain engine runs the schedule's steps over its
+padded width groups, the CUDA kernel the DAG's levels over the packed rows.
+
 Unknown names raise `ValueError` listing the registered engines.  There
 are no fallback chains in the port yet: an engine that cannot serve a
 schedule (wrong dtype, wrong device, failed build) raises, and nothing
@@ -70,6 +74,26 @@ class Engine:
         """Identity recorded in cache keys ("which engine was timed")."""
         return self.name
 
+    def sweep_shape(self, ts, sched) -> dict:
+        """What one sweep of the transformed system `ts`, compiled into
+        `sched`, runs on this engine, for the tuner's cost model
+        (`repro_torch.core.portfolio.CostModel.predict`): its steps,
+        padded flops and bytes, the T-factor preamble's steps and the
+        launches.  This engine steps through the schedule and the preamble
+        schedule (`schedule_for_preamble`), one launch each."""
+        pre_steps = 0
+        if ts.T.nnz:
+            from .schedule import schedule_for_preamble
+            psched, _, _ = schedule_for_preamble(
+                ts, chunk=sched.chunk, max_deps=sched.max_deps,
+                dtype=sched.dtype)
+            pre_steps = psched.num_steps
+        return {"steps": sched.num_steps,
+                "padded_flops": sched.padded_flops(),
+                "memory_bytes": sched.memory_bytes(),
+                "preamble_steps": pre_steps,
+                "launches": 1 + int(ts.T.nnz > 0)}
+
     def capabilities(self) -> dict:
         return {
             "name": self.name,
@@ -105,6 +129,35 @@ class CudaEngine(Engine):
 
     def available(self) -> bool:
         return torch.cuda.is_available()
+
+    def sweep_shape(self, ts, sched) -> dict:
+        """The kernel's steps are the DAG's levels as the packing leaves
+        them (carry chains fused, no lane cap, coefficients that are 0 in
+        the schedule dtype dropped), for the main system and for the
+        preamble's; flops and bytes are those of the rows and deps of
+        both that the tile kernel solves
+        (`kernels.sptrsv_level.step_flops`/`step_bytes`).  The first
+        level, the dependency-free rows, goes to a pass on every SM at
+        full bandwidth (microseconds for 100,000 rows, where one block
+        would take a hundred): it is charged as a step and a launch, not
+        by its rows.  Read from the packed schedules themselves
+        (`pack_schedule`), as the build packs the winner."""
+        from ..kernels.sptrsv_level import pack_schedule, step_bytes, \
+            step_flops
+        from .schedule import schedule_for_preamble
+        packs = [pack_schedule(sched)]
+        if ts.T.nnz:
+            psched, _, _ = schedule_for_preamble(
+                ts, chunk=sched.chunk, max_deps=sched.max_deps,
+                dtype=sched.dtype)
+            packs.append(pack_schedule(psched))
+        rows = np.concatenate([p.step_rows[1:] for p in packs])
+        deps = np.concatenate([p.step_deps[1:] for p in packs])
+        return {"steps": packs[0].num_steps,
+                "preamble_steps": sum(p.num_steps for p in packs[1:]),
+                "launches": sum(p.launches for p in packs),
+                "padded_flops": int(step_flops(rows, deps).sum()),
+                "memory_bytes": int(step_bytes(rows, deps).sum())}
 
     def compile(self, dsched):
         from ..kernels.sptrsv_level import sptrsv_groups, sptrsv_groups_multi

@@ -1,19 +1,21 @@
 """TriangularOperator: cached end-to-end SpTRSV facade on torch devices.
 
-Port of `repro.solver.operator` for a fixed strategy:
+Port of `repro.solver.operator`:
 
-    op = TriangularOperator.from_csr(L, tune="avgLevelCost")   # on "cuda"
+    op = TriangularOperator.from_csr(L)             # tuned, on "cuda"
+    op = TriangularOperator.from_csr(L, tune="avgLevelCost", device="cpu")
     x  = op.solve(b)                                # b: (n,) or (n, k)
     f  = op.device_solve_fn()                       # tensor -> tensor
 
-`from_csr` orients the sweep to a lower-triangular system, runs the graph
-transformation for the named strategy, compiles the width-bucketed
-LevelSchedule (the numpy host half, copied from `repro`), and keeps the
-artifact in an in-memory cache keyed by the matrix fingerprint and the
-configuration.  The schedule is staged once per device; the engine is the
-CUDA kernel on a card and the plain PyTorch body on the CPU.  The device
-is `cuda` unless the caller passes `device="cpu"`; without CUDA and
-without `device=`, construction raises.
+`from_csr` orients the sweep to a lower-triangular system, runs the
+strategy-portfolio tuner (`tune="auto"`, the default; `op.report` holds
+its ranked report) or the graph transformation for the named strategy,
+compiles the width-bucketed LevelSchedule (the numpy host half, copied
+from `repro`), and keeps the artifact in an in-memory cache keyed by the
+matrix fingerprint and the configuration.  The schedule is staged once
+per device; the engine is the CUDA kernel on a card and the plain
+PyTorch body on the CPU.  The device is `cuda` unless the caller passes
+`device="cpu"`; without CUDA and without `device=`, construction raises.
 
 All four triangular sweeps share one lower-triangular pipeline:
 `side="lower"|"upper"` selects the stored triangle, `transpose=True`
@@ -27,9 +29,9 @@ or (under `health="strict"`) a large residual raises
 `NumericalHealthError`.  Nothing is repaired, and no engine stands in for
 a failing one.
 
-Not ported yet (ROADMAP.md, queue 1): `tune="auto"`, the disk cache,
-`update_values`, `mesh=`, engine fallback chains, health repair and the
-host-reference escape hatch, and tracing spans.
+Not ported yet (ROADMAP.md, queue 1): the disk cache, `update_values`,
+`mesh=`, engine fallback chains, health repair and the host-reference
+escape hatch, and tracing spans.
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ import torch
 from ..sparse.csr import CSR, reverse_both
 
 __all__ = ["TriangularOperator", "OperatorStats", "matrix_fingerprint",
-           "value_fingerprint", "orient_lower", "compose_sweep_fn"]
+           "value_fingerprint", "orient_lower", "compose_sweep_fn",
+           "candidate_sweep_fn"]
 
 CACHE_VERSION = 3
 
@@ -95,6 +98,26 @@ def compose_sweep_fn(main_fn, schedule_dtype: torch.dtype, pre_fn, src,
         return x.to(out_dtype)
 
     return fn
+
+
+def candidate_sweep_fn(ts, sched, engine, device, reversed_: bool = False):
+    """A transformed system's sweep as `device_solve_fn` serves it: the
+    T-factor preamble's schedule (`schedule_for_preamble`, with `sched`'s
+    compile settings) and `sched`, staged on `device` and compiled by
+    `engine`, composed by `compose_sweep_fn`.  What the tuner's measured
+    modes time."""
+    from .levelset import to_device, torch_dtype
+    from .schedule import schedule_for_preamble
+    main_fn = engine.compile(to_device(sched, device))
+    psched, src, row_pos = schedule_for_preamble(
+        ts, chunk=sched.chunk, max_deps=sched.max_deps, dtype=sched.dtype)
+    pre_fn = None
+    if psched is not None:
+        pre_fn = engine.compile(to_device(psched, device))
+        src = torch.as_tensor(src, device=device)
+        row_pos = torch.as_tensor(row_pos, device=device)
+    return compose_sweep_fn(main_fn, torch_dtype(sched.dtype), pre_fn, src,
+                            row_pos, reversed_)
 
 
 def matrix_fingerprint(L: CSR, include_values: bool = True) -> str:
@@ -211,7 +234,8 @@ class TriangularOperator:
         self._payload = payload
         self._ts = payload["ts"]    # transform of the oriented lower system
         self._sched = payload["sched"]
-        self.strategy = payload["strategy"]
+        self.report = payload.get("report")        # slim PortfolioReport|None
+        self.strategy = payload["strategy"]        # winning strategy label
         cfg = payload["config"]
         self._config = cfg
         self.side = cfg["side"]
@@ -240,13 +264,16 @@ class TriangularOperator:
     def from_csr(cls, L: CSR, tune="auto", *, side: str = "lower",
                  transpose: bool = False, chunk: int = 256,
                  max_deps: int = 16, dtype=np.float32, engine=None,
-                 device=None, cache: bool = True) -> "TriangularOperator":
+                 device=None, cache: bool = True, portfolio=None,
+                 cost_model=None,
+                 measure_top_k: int = 0) -> "TriangularOperator":
         """Build (or fetch from the memory cache) the operator for L.
 
         side/transpose: which sweep this operator performs (module doc).
-        tune:   a stable strategy name ("avgLevelCost", ...) or a Strategy
-                instance.  "auto" (the portfolio tuner, the reference's
-                default) is not ported yet and raises NotImplementedError.
+        tune:   "auto" — run the StrategyPortfolio tuner and take its pick
+                (`op.report` is its slim report); a stable strategy name
+                ("avgLevelCost", ...) or a Strategy instance — skip tuning
+                and use that strategy as-is.
         engine: a registered name ("cuda", "torch"), an Engine, or None for
                 the device's default ("cuda" on a card, "torch" on the CPU).
         device: "cuda" (the default when None) or "cpu"; None without CUDA
@@ -254,19 +281,29 @@ class TriangularOperator:
                 stages the sweep's schedules (main and preamble).
         cache:  look up / keep the compiled artifact in memory, keyed by
                 the matrix fingerprint and the configuration.
+        cost_model: the tuner's constants (a portfolio CostModel; None:
+                `default_cost_model_for(engine)`); part of the cache key.
+                tune="auto" only.
+        measure_top_k: time the tuner's k model-best candidates on the
+                device as they would serve, and re-rank them.  "auto" only.
+        portfolio: a fully custom StrategyPortfolio (tune="auto" only);
+                cost_model/measure_top_k are forwarded when constructing
+                the default one.  Its configuration is not part of the
+                cache key, so passing one disables caching for that build.
+
+        With tune="auto" the engine is part of the cache key: it says what
+        a step costs (`Engine.sweep_shape`), so two engines may pick
+        differently.
         """
-        from ..core.portfolio import make_strategy
+        import dataclasses as _dc
+        from ..core.portfolio import (StrategyPortfolio,
+                                      default_cost_model_for, make_strategy)
         from ..core.strategies import strategy_label
         from ..core.transform import transform
         from .engines import resolve_engine
         from .levelset import resolve_device
         from .schedule import schedule_for_transformed
 
-        if tune == "auto":
-            raise NotImplementedError(
-                "tune='auto' needs the strategy-portfolio tuner, which the "
-                "port does not have yet (ROADMAP.md, queue 1: tuner); pass "
-                "a strategy name such as 'avgLevelCost'")
         if side not in ("lower", "upper"):
             raise ValueError(f"side must be 'lower' or 'upper', got {side!r}")
         dev = resolve_device(device)
@@ -274,14 +311,23 @@ class TriangularOperator:
         if dev.type not in getattr(eng, "device_types", (dev.type,)):
             raise ValueError(f"engine {eng.name!r} does not run on {dev}; "
                              f"it runs on {tuple(eng.device_types)}")
-        strat = make_strategy(tune)
-        label = strategy_label(strat)
-        cfg = {"tune": label, "side": side, "transpose": bool(transpose),
+        auto = isinstance(tune, str) and tune == "auto"
+        if auto and cost_model is None:
+            cost_model = default_cost_model_for(eng)
+        cache = cache and portfolio is None
+        tune_key = "auto" if auto else strategy_label(make_strategy(tune))
+        cfg = {"tune": tune_key, "side": side, "transpose": bool(transpose),
                "chunk": chunk, "max_deps": max_deps,
-               "dtype": np.dtype(dtype).name}
+               "dtype": np.dtype(dtype).name,
+               "engine": eng.cache_token() if auto else None,
+               "measure_top_k": measure_top_k,
+               "cost_model": (None if cost_model is None
+                              else sorted(_dc.asdict(cost_model).items()))}
         build_kwargs = {"side": side, "transpose": bool(transpose),
                         "chunk": chunk, "max_deps": max_deps, "dtype": dtype,
-                        "engine": eng, "device": dev, "cache": cache}
+                        "engine": eng, "device": dev, "cache": cache,
+                        "portfolio": portfolio, "cost_model": cost_model,
+                        "measure_top_k": measure_top_k}
         key = (matrix_fingerprint(L, include_values=False) + "-" +
                hashlib.sha256(repr(sorted(cfg.items())).encode()
                               ).hexdigest()[:16] + "-" +
@@ -302,11 +348,26 @@ class TriangularOperator:
                 return _finish(payload, "memory")
         L_eff, reversed_ = orient_lower(L, side, bool(transpose))
         t0 = time.perf_counter()
-        ts = transform(L_eff, strat, validate=False, codegen=False)
-        sched = schedule_for_transformed(ts, chunk=chunk, max_deps=max_deps,
-                                         dtype=dtype)
+        report = None
+        if auto:
+            tuner = portfolio if portfolio is not None else \
+                StrategyPortfolio(chunk=chunk, max_deps=max_deps,
+                                  dtype=dtype, cost_model=cost_model,
+                                  measure_top_k=measure_top_k, engine=eng,
+                                  device=dev)
+            report = tuner.tune(L_eff)
+            best = report.best
+            ts, sched, label = best.ts, best.sched, best.label
+            report = report.slim()  # candidates keep stats, drop arrays
+        else:
+            strat = make_strategy(tune)
+            label = strategy_label(strat)
+            ts = transform(L_eff, strat, validate=False, codegen=False)
+            sched = schedule_for_transformed(ts, chunk=chunk,
+                                             max_deps=max_deps, dtype=dtype)
         payload = {"version": CACHE_VERSION, "strategy": label, "ts": ts,
-                   "sched": sched, "config": cfg, "reversed": reversed_,
+                   "sched": sched, "report": report, "config": cfg,
+                   "reversed": reversed_,
                    "tune_ms": (time.perf_counter() - t0) * 1e3}
         if cache:
             cls._memory_put(key, payload)

@@ -60,6 +60,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print(" ".join(names))
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -67,6 +68,10 @@ print(len(names))
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 16
+    imported = set(proc.stdout.split()[:-1])
+    for name in ("repro_torch.core.portfolio", "repro_torch.obs",
+                 "repro_torch.obs.profile", "repro_torch.obs.calibrate"):
+        assert name in imported, name
 
 
 def _run_smoke(cwd: Path):

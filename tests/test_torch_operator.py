@@ -171,8 +171,13 @@ def test_cuda_engine_on_cpu_raises_and_never_serves_plain():
 
 
 def test_tune_auto_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TriangularOperator.from_csr(generators.chain(16), device="cpu")
+    # tune="auto" (the default) is ported: the tuner picks a strategy and
+    # leaves its report on the operator
+    op = TriangularOperator.from_csr(generators.chain(16), device="cpu")
+    assert op.report is not None and op.report.best.label == op.strategy
+    b = np.ones(16)
+    op.solve(b)
+    assert op.stats.last_residual <= 1e-10
 
 
 def test_health_guard_raises():

@@ -258,10 +258,9 @@ def test_preconditioner_on_the_port_factors():
 def test_not_ported_options_raise():
     A = generators.poisson2d_spd(6, 5)
     fac = factorize.ic0(A)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        Preconditioner.ic0(A)                   # tune="auto", the default
-    with pytest.raises(NotImplementedError, match="item 1"):
-        Preconditioner.from_factors(fac)
+    # tune="auto", the default, is ported: the pair tuner decides
+    assert Preconditioner.ic0(A, device="cpu").report is not None
+    assert Preconditioner.from_factors(fac, device="cpu").report is not None
     with pytest.raises(NotImplementedError, match="item 8"):
         Preconditioner.from_factors(fac, tune="no_rewriting", mesh=object(),
                                     device="cpu")
