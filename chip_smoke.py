@@ -70,11 +70,36 @@ non-zero:
    gates of phase 5, and no_rewriting's iteration count) and the staged
    solve's ms beside no_rewriting's and avgLevelCost's on the same
    factors, timed in turns.  K1 and its stamped form must be launched,
-   the plain version never.
-7. The kernels line and the contract line.
+   the plain version never.  `from_csr(L)` on torso2 keeps its operator
+   in a cache directory of its own for phase 7.
+7. The operator's life cycle at full size.  `update_values`: ten steps
+   scaling the off-diagonal values by 1 + 0.01 k on lung2's L under
+   no_rewriting and avgLevelCost (a preamble) and torso2's under
+   no_rewriting, each step's unrefined sweep within 5e-4 of the float64
+   oracle and its refined solve within 1e-10, the packed arrays refreshed
+   on the card bitwise equal to a fresh pack, no pack unless the
+   refresh reported a moved zero set (none under no_rewriting); the
+   median step's ms beside a fresh `from_csr(..., cache=False)` build's,
+   and a step split into host replay, host repack and device refresh.
+   The zero trap: a dependency of lung2's L that is 0 at the build and
+   non-zero after the update must re-pack, solve within the gates, and
+   differ from what the new values in the old packing give.
+   `Preconditioner.refactor` on lung2's SPD system: IC(0)-PCG on the new
+   matrix to a true residual <= 1e-7, M^-1 equal to a fresh `ic0`'s, the
+   refactor's ms against the fresh `ic0`'s, M^-1's ms before and after.
+   The disk tier: a new `python3` process asks for phase 6's torso2
+   operator with its cache directory, and must get `cache_source ==
+   "disk"`, phase 6's pick, no pack, and solves within the gates.
+   `sptrsv` with a float32 CUDA `b` that requires grad, on lung2's L in
+   all four sweeps: the forward against the oracle and the gradient
+   against the flipped solve within 1e-6, and a second-order gradient
+   through `create_graph=True`; forward and backward ms, K1 launches a
+   call.  K1 and K2 must be launched, the plain version never.
+8. The kernels line and the contract line.
 
-Full results go to chiprun_out/chip_smoke.json.  With `--sweep` or
-`--ab`, phases 3-6 give way to studies of the SpTRSV kernel on lung2's
+Operators' disk entries go to a temporary directory that the script
+removes at its end.  Full results go to chiprun_out/chip_smoke.json.
+With `--sweep` or `--ab`, phases 3-7 give way to studies of the SpTRSV kernel on lung2's
 and torso2's L and IC(0) L^T (R = 1, 8), written to
 chiprun_out/chip_smoke_study.json: `--sweep` times it at every consumer
 count and fits `ROUND_WARPS`, the ratio from which the wrapper sizes the
@@ -84,6 +109,7 @@ commit, or a variant of this one) beside this one's.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -880,9 +906,11 @@ def log_candidates(rows: list) -> None:
             f"pre_steps={r['preamble_steps']:4d} launches={r['launches']}")
 
 
-def phase_tuner(rng) -> tuple:
+def phase_tuner(rng, cache_dir: str) -> tuple:
     """The strategy-portfolio tuner on the card at full size (module doc,
-    phase 6).  Returns (result, launch counts of this path)."""
+    phase 6); `from_csr(L)` as a user calls it on torso2 keeps its operator
+    in `cache_dir` for phase 7.  Returns (result, launch counts of this
+    path)."""
     from repro_torch.core.portfolio import (StrategyPortfolio,
                                             default_candidates,
                                             default_cost_model_for,
@@ -1030,7 +1058,7 @@ def phase_tuner(rng) -> tuple:
     # the entry point as a user calls it, on torso2 (lung2's ten
     # transforms take two minutes): its pick is the model mode's
     t0 = time.perf_counter()
-    op = TriangularOperator.from_csr(mats["torso2_like"])
+    op = TriangularOperator.from_csr(mats["torso2_like"], cache_dir=cache_dir)
     entry = res["operators"]["torso2_like"]
     entry["default"] = served(op, "torso2_like", "default",
                               time.perf_counter() - t0,
@@ -1098,6 +1126,431 @@ def phase_tuner(rng) -> tuple:
           f"a kernel of the tuner's path was never launched: {counts}")
     check(counts["plain"] == 0,
           f"the plain version ran on the tuner's path: {counts}")
+    return res, counts
+
+
+# -- phase 7: the operator's life cycle ------------------------------------
+
+UPDATE_STEPS = 10
+# sptrsv's float32 result of a refined solve against the float64 oracle,
+# and its gradient against the flipped solve: float32 rounding of a
+# float64-accurate answer
+SPTRSV_RTOL = 1e-6
+
+
+def synced_s(fn) -> tuple:
+    """(result, host seconds) of fn(), synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def offdiag_mask(L) -> np.ndarray:
+    return np.repeat(np.arange(L.n_rows), L.row_nnz()) != L.indices
+
+
+def packed_equal(a, b) -> bool:
+    """The arrays the kernel reads, bitwise."""
+    return all(torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu())
+               for k in ("tiles", "tile_ptr", "far", "free_row",
+                         "free_dinv"))
+
+
+def counted(fn):
+    """fn() with the kernels' launch counts left as they were: launches
+    made to compare with a reference are not the path's."""
+    from repro_torch.kernels import sptrsv_level as K
+    saved = dict(K.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        K.LAUNCHES.update(saved)
+
+
+def zero_set(op, which: str) -> np.ndarray:
+    """Which value slots of the operator's main ("packed") or preamble
+    ("preamble_packed") schedule are 0 in float32."""
+    from repro_torch.kernels import sptrsv_level as K
+    sched = op.schedule if which == "packed" else op._preamble_host()[0]
+    if sched is None:
+        return np.zeros(0, bool)
+    return K.schedule_values(sched).astype(np.float32) == 0
+
+
+def life_updates(rng, mats) -> list:
+    """update_values: UPDATE_STEPS steps scaling the off-diagonal values
+    by 1 + 0.01 k on lung2 (no_rewriting, avgLevelCost) and torso2
+    (no_rewriting), each step's sweeps checked; the last step's packed
+    arrays against a fresh pack; the step's ms against a fresh build and
+    split into its host replay, host repack and device refresh."""
+    from repro_torch.core.transform import replay_transform
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.solver.operator import orient_lower
+    from repro_torch.solver.schedule import repack_schedule_values
+    rows = []
+    for mat, strat in (("lung2_like", "no_rewriting"),
+                       ("lung2_like", "avgLevelCost"),
+                       ("torso2_like", "no_rewriting")):
+        L = mats[mat]
+        off = offdiag_mask(L)
+        b = rng.standard_normal(L.n_rows)
+        B = rng.standard_normal((L.n_rows, 4))
+        # cache=False: an update then touches neither cache tier
+        op, build_s = synced_s(lambda: TriangularOperator.from_csr(
+            L, tune=strat, cache=False))
+        packs0, repacks0 = K.PACKS["pack_groups"], K.PACKS["repacks"]
+        upd_ms, err0, resid = [], [], []
+        # per step and packed schedule, the coefficients that crossed 0 in
+        # float32 and whether its packing was made anew (a new value map)
+        moved = {"packed": [], "preamble_packed": []}
+        for k in range(1, UPDATE_STEPS + 1):
+            data = L.data.copy()
+            data[off] *= 1 + 0.01 * k
+            Lk = L.with_data(data)
+            before = {w: (op._payload.get(w), zero_set(op, w))
+                      for w in moved}
+            _, secs = synced_s(lambda: op.update_values(Lk))
+            upd_ms.append(secs * 1e3)
+            for w, (packed, zeros) in before.items():
+                if packed is not None:
+                    moved[w].append([
+                        int(np.count_nonzero(zeros != zero_set(op, w))),
+                        op._payload[w].values is not packed.values])
+            x_ref = oracle(Lk, b)
+            scale = max(1.0, float(np.abs(x_ref).max()))
+            err0.append(float(np.abs(op.solve(b, max_refine=0) - x_ref)
+                              .max()) / scale)
+            op.solve(b)
+            resid.append(op.stats.last_residual)
+            check(err0[-1] <= ORACLE_RTOL and resid[-1] <= REFINE_TOL,
+                  f"{mat}/{strat} update {k}: unrefined error "
+                  f"{err0[-1]:.3e}, refined residual {resid[-1]:.3e}")
+        op.solve(B)
+        residB = op.stats.last_residual
+        check(residB <= REFINE_TOL, f"{mat}/{strat}: batched residual "
+              f"{residB:.3e} after the updates")
+        packs = K.PACKS["pack_groups"] - packs0
+        repacks = K.PACKS["repacks"] - repacks0
+        check(packs == repacks == op.stats.repacks,
+              f"{mat}/{strat}: {packs} packs in {UPDATE_STEPS} updates, "
+              f"{repacks} of them re-packs for a moved zero set "
+              f"(the operator counts {op.stats.repacks})")
+        check(strat != "no_rewriting" or packs == 0,
+              f"{mat}/{strat}: the updates packed {packs} times")
+        check(all(repacked == (crossed > 0) for v in moved.values()
+                  for crossed, repacked in v),
+              f"{mat}/{strat}: a step re-packed without a zero crossing or "
+              f"refreshed across one: {moved}")
+        # the refreshed arrays against a fresh pack of the same schedules
+        same = packed_equal(op._payload["packed"],
+                            K.pack_schedule(op.schedule))
+        psched = op._preamble_host()[0]
+        if psched is not None:
+            same &= packed_equal(op._payload["preamble_packed"],
+                                 K.pack_schedule(psched))
+        check(same, f"{mat}/{strat}: refreshed packed arrays differ from a "
+              "fresh pack")
+        # a fresh build of the last values with the same strategy
+        _, fresh_s = synced_s(lambda: TriangularOperator.from_csr(
+            Lk, tune=strat, cache=False))
+        # one more step by its parts: host replay, host repack, device
+        # refresh (the operator's own step does the same in that order)
+        data = L.data.copy()
+        data[off] *= 1.11
+        Lk = L.with_data(data)
+        L_eff = orient_lower(Lk, "lower", False)[0]
+        ts_new, replay_s = synced_s(lambda: replay_transform(L_eff, op._ts))
+        sched_new, repack_s = synced_s(lambda: repack_schedule_values(
+            op.schedule, ts_new.A.data, ts_new.diag))
+        (_, repacked), refresh_s = synced_s(lambda: K.refresh_packed_values(
+            op._payload["packed"], sched_new))
+        # and the preamble's, which the step repacks and refreshes too
+        pre_repacked = None
+        if psched is not None:
+            pnew = repack_schedule_values(psched, ts_new.T.data,
+                                          np.ones(ts_new.T.n_rows))
+            pre_repacked = K.refresh_packed_values(
+                op._payload["preamble_packed"], pnew)[1]
+        row = {"case": f"{mat}(1.0)/{strat}", "n": L.n_rows,
+               "build_s": build_s, "fresh_build_s": fresh_s,
+               "update_ms": upd_ms,
+               "update_ms_median": float(np.median(upd_ms)),
+               "replay_ms": replay_s * 1e3, "repack_ms": repack_s * 1e3,
+               "refresh_ms": refresh_s * 1e3, "refresh_repacked": repacked,
+               "preamble_refresh_repacked": pre_repacked,
+               "packs": packs, "repacks": repacks,
+               "zero_crossings_and_repacks": moved,
+               "err_max_refine0": max(err0), "residual": max(resid),
+               "residual_batched": residB, "packed_equal_fresh": same}
+        rows.append(row)
+        log(f"  update_values {row['case']:28s} median "
+            f"{row['update_ms_median']:.1f} ms (fresh build "
+            f"{fresh_s * 1e3:.1f} ms; replay {row['replay_ms']:.1f}, repack "
+            f"{row['repack_ms']:.1f}, refresh {row['refresh_ms']:.2f}; "
+            f"re-packed main {repacked}, preamble {pre_repacked}) "
+            f"packs={packs} repacks={repacks} (steps that re-packed / "
+            f"saw zeros cross: "
+            + ", ".join(f"{w} {sum(r for _, r in v)}/"
+                        f"{sum(c > 0 for c, _ in v)}"
+                        for w, v in moved.items() if v)
+            + f") err0={max(err0):.2e} "
+            f"resid={max(resid):.2e} residB={residB:.2e} == fresh pack")
+    return rows
+
+
+def life_zero_trap(mats) -> dict:
+    """A dependency of lung2's L that is 0 at the build and non-zero after
+    the update: the update must re-pack and solve right, where the new
+    values scattered into the old packing give a wrong answer."""
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.solver.levelset import pad_rhs
+    import dataclasses
+    L = mats["lung2_like"]
+    n = L.n_rows
+    rows = np.repeat(np.arange(n), L.row_nnz())
+    b = np.random.default_rng(SEED).standard_normal(n)
+    x_ref = oracle(L, b)
+    scale = max(1.0, float(np.abs(x_ref).max()))
+    # the dependency whose term a_ij x_j weighs most in this solve
+    off = np.flatnonzero(rows != L.indices)
+    k = int(off[np.argmax(np.abs(L.data[off] * x_ref[L.indices[off]]))])
+    zeroed = L.data.copy()
+    zeroed[k] = 0.0
+    op = TriangularOperator.from_csr(L.with_data(zeroed),
+                                     tune="no_rewriting", cache=False)
+    old = op._payload["packed"]
+    r0, p0 = op.stats.repacks, K.PACKS["pack_groups"]
+    op.update_values(L)
+    check(op.stats.repacks == r0 + 1 and
+          K.PACKS["pack_groups"] == p0 + 1,
+          f"zero trap: {op.stats.repacks - r0} re-packs, "
+          f"{K.PACKS['pack_groups'] - p0} packs")
+    err0 = float(np.abs(op.solve(b, max_refine=0) - x_ref).max()) / scale
+    op.solve(b)
+    resid = op.stats.last_residual
+    # what a refresh alone would serve: the new values in the old packing,
+    # which holds no word for the entry that was 0
+    vm = old.values
+    v = torch.as_tensor(K.schedule_values(op.schedule).astype(np.float32),
+                        device=DEVICE)
+    tw, ts, _, _, fs = vm.staged(old.tiles.device)
+    tiles = old.tiles.clone()
+    tiles.view(torch.float32)[tw] = v[ts]
+    stale = dataclasses.replace(old, tiles=tiles, free_dinv=v[fs])
+    c = torch.as_tensor(op._ts.preamble(b), dtype=torch.float32,
+                        device=DEVICE)
+    x_stale = counted(lambda: K.sptrsv_groups(
+        None, pad_rhs(c).contiguous(), n=n, n_carry=stale.n_carry,
+        packed=stale)).cpu().double().numpy()
+    err_stale = float(np.abs(x_stale - x_ref).max()) / scale
+    check(err0 <= ORACLE_RTOL and resid <= REFINE_TOL,
+          f"zero trap: unrefined error {err0:.3e}, residual {resid:.3e}")
+    check(err_stale > ORACLE_RTOL,
+          f"zero trap: the stale packing's answer is off by only "
+          f"{err_stale:.3e}; the entry does not show the trap")
+    out = {"entry": k, "row": int(rows[k]), "col": int(L.indices[k]),
+           "value": float(L.data[k]), "err_max_refine0": err0,
+           "residual": resid, "err_refresh_alone": err_stale,
+           "steps_before": old.num_steps,
+           "steps_after": op._payload["packed"].num_steps}
+    log(f"  zero trap on lung2 L[{out['row']}, {out['col']}] = "
+        f"{out['value']:.3f}: re-packed ({out['steps_before']} -> "
+        f"{out['steps_after']} steps), err0={err0:.2e} resid={resid:.2e}; "
+        f"a refresh alone would be off by {err_stale:.2e}")
+    return out
+
+
+def life_refactor(rng, mats) -> dict:
+    """Preconditioner.refactor on lung2's SPD system: IC(0)-PCG on the new
+    matrix, the refactor's ms against a fresh ic0, M^-1's ms before and
+    after."""
+    from repro_torch.iterative import cg, device_matvec
+    from repro_torch.precond import Preconditioner
+    from repro_torch.sparse import generators
+    A = generators.spd_from_lower(mats["lung2_like"], seed=0)
+    rows = np.repeat(np.arange(A.n_rows), A.row_nnz())
+    key = np.minimum(rows, A.indices) * A.n_cols + np.maximum(rows,
+                                                               A.indices)
+    scale = 1.0 + 0.1 * np.sin(key * 12.9898)
+    scale[A.indices == rows] = 1.2
+    A2 = A.with_data(A.data * scale)
+    # cache=False: refactor and the fresh build touch neither cache tier
+    P = Preconditioner.ic0(A, tune="no_rewriting", cache=False)
+    r = torch.as_tensor(rng.standard_normal(A.n_rows), device=DEVICE)
+    apply_before = time_ms(lambda: P.device_apply()(r), 20)
+    _, refactor_s = synced_s(lambda: P.refactor(A2))
+    apply_after = time_ms(lambda: P.device_apply()(r), 20)
+    fresh, fresh_s = synced_s(lambda: Preconditioner.ic0(
+        A2, tune="no_rewriting", cache=False))
+    z, zf = P.device_apply()(r), fresh.device_apply()(r)
+    _, diff = rel_err(z, zf)
+    check(diff <= KERNEL_RTOL, f"refactor: M^-1 differs from a fresh "
+          f"ic0's by {diff:.3e}")
+    x_true = rng.standard_normal(A.n_rows)
+    b_np = A2.matvec(x_true)
+    b = torch.as_tensor(b_np, device=DEVICE)
+    res = cg(device_matvec(A2), b, preconditioner=P, tol=PCG_TOL,
+             maxiter=PCG_MAXITER)
+    resid = true_residual(A2, res.x, b_np)
+    check(bool(res.converged) and resid <= PCG_TRUE_RESID,
+          f"IC(0)-PCG after refactor: converged={bool(res.converged)} "
+          f"after {int(res.iterations)}, true residual {resid:.3e}")
+    out = {"case": "spd_from_lower(lung2_like(1.0))/ic0/no_rewriting",
+           "refactor_ms": refactor_s * 1e3, "fresh_ic0_ms": fresh_s * 1e3,
+           "apply_ms_before": apply_before, "apply_ms_after": apply_after,
+           "apply_equal_fresh": bool(torch.equal(z, zf)),
+           "apply_rel_diff_fresh": diff, "pcg_iterations": int(
+               res.iterations), "pcg_true_residual": resid,
+           "repacks": P.forward.stats.repacks + P.backward.stats.repacks}
+    log(f"  refactor {out['case']}: {out['refactor_ms']:.1f} ms (fresh ic0 "
+        f"{out['fresh_ic0_ms']:.1f} ms), M^-1 {apply_before:.4f} -> "
+        f"{apply_after:.4f} ms, equal to fresh {out['apply_equal_fresh']} "
+        f"({diff:.1e}); PCG {out['pcg_iterations']} it, true residual "
+        f"{resid:.2e}")
+    return out
+
+
+DISK_HIT = """
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, {src!r})
+from repro_torch.kernels import sptrsv_level as K
+from repro_torch.solver import TriangularOperator
+from repro_torch.sparse import generators
+L = generators.torso2_like(1.0)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+op = TriangularOperator.from_csr(L, cache_dir={cache_dir!r})
+torch.cuda.synchronize()
+secs = time.perf_counter() - t0
+b = np.random.default_rng(1).standard_normal(L.n_rows)
+np.save({x0_path!r}, op.solve(b, max_refine=0))
+op.solve(b)
+print(json.dumps({{"cache_source": op.stats.cache_source,
+                  "strategy": op.strategy, "seconds": secs,
+                  "pack_groups": K.PACKS["pack_groups"],
+                  "residual": op.stats.last_residual,
+                  "launches": K.LAUNCHES["sptrsv_groups"]}}))
+"""
+
+
+def life_disk(mats, cache_dir: str, tuned: dict) -> dict:
+    """A fresh process asks for the operator phase 6 tuned on torso2 with
+    the same cache_dir: a disk hit, the same pick, nothing packed."""
+    L = mats["torso2_like"]
+    x0_path = str(Path(cache_dir) / "x0.npy")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", DISK_HIT.format(
+            src=str(ROOT / "src"), cache_dir=cache_dir, x0_path=x0_path)],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"disk-hit process failed:\n{proc.stderr}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    b = np.random.default_rng(1).standard_normal(L.n_rows)
+    x_ref = oracle(L, b)
+    err0 = float(np.abs(np.load(x0_path) - x_ref).max()) / max(
+        1.0, float(np.abs(x_ref).max()))
+    check(got["cache_source"] == "disk" and got["pack_groups"] == 0 and
+          got["strategy"] == tuned["pick"],
+          f"disk hit: {got} (phase 6 picked {tuned['pick']})")
+    check(err0 <= ORACLE_RTOL and got["residual"] <= REFINE_TOL,
+          f"disk hit: unrefined error {err0:.3e}, residual "
+          f"{got['residual']:.3e}")
+    out = dict(got, err_max_refine0=err0, process_s=wall,
+               tune_s=tuned["seconds"])
+    log(f"  disk hit in a new process: torso2 {got['strategy']} from_csr "
+        f"{got['seconds']:.2f} s (the tune took {tuned['seconds']:.1f} s; "
+        f"process {wall:.1f} s), packs {got['pack_groups']}, "
+        f"err0={err0:.2e} resid={got['residual']:.2e}")
+    return out
+
+
+def life_sptrsv(rng, mats) -> list:
+    """sptrsv with a float32 CUDA b that requires grad, on lung2's L in all
+    four sweeps: the forward against the oracle, the gradient of
+    (x * w).sum() against the flipped solve, a second-order gradient
+    through create_graph=True; forward and backward ms, K1 launches a
+    call."""
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import sptrsv
+    L = mats["lung2_like"]
+    n = L.n_rows
+    rows = []
+    for lower, transpose in ((True, False), (True, True), (False, False),
+                             (False, True)):
+        A = L if lower else L.transpose()
+        kw = {"lower": lower, "transpose": transpose}
+        b_np = rng.standard_normal(n)
+        w_np = rng.standard_normal(n)
+        b = torch.tensor(b_np, dtype=torch.float32, device=DEVICE,
+                         requires_grad=True)
+        w = torch.as_tensor(w_np, dtype=torch.float32, device=DEVICE)
+        x = sptrsv(A, b, **kw)                  # builds both operators
+        (g,) = torch.autograd.grad((x * w).sum(), b)
+        x_ref = oracle(A, b_np, transpose=transpose) if lower else \
+            oracle(L, b_np, transpose=not transpose)
+        g_ref = oracle(L, w_np, transpose=not transpose) if lower else \
+            oracle(L, w_np, transpose=transpose)
+        _, err = rel_err(x.detach().cpu(), torch.as_tensor(x_ref))
+        _, gerr = rel_err(g.cpu(), torch.as_tensor(g_ref))
+        check(x.device == b.device and x.dtype == torch.float32 and
+              err <= SPTRSV_RTOL and gerr <= SPTRSV_RTOL,
+              f"sptrsv {kw}: forward error {err:.3e}, gradient error "
+              f"{gerr:.3e}")
+        # second order: grad of sum(x^2) is 2 A^-T x; its grad of the sum
+        # is 2 A^-T A^-1 1
+        x2 = sptrsv(A, b, **kw)
+        (g2,) = torch.autograd.grad((x2 ** 2).sum(), b, create_graph=True)
+        (h,) = torch.autograd.grad(g2.sum(), b)
+        h_ref = 2 * sptrsv(A, sptrsv(A, np.ones(n), **kw), lower=lower,
+                           transpose=not transpose)
+        _, herr = rel_err(h.cpu(), torch.as_tensor(h_ref))
+        check(g2.requires_grad and herr <= SPTRSV_RTOL,
+              f"sptrsv {kw}: second-order error {herr:.3e}")
+        before = K.LAUNCHES["sptrsv_groups"]
+        fwd_ms = 1e3 * median_solve_s(lambda: sptrsv(A, b, **kw))
+        per_call = (K.LAUNCHES["sptrsv_groups"] - before) / (SOLVE_REPS + 1)
+        bwd_ms = 1e3 * median_solve_s(lambda: torch.autograd.grad(
+            (sptrsv(A, b, **kw) * w).sum(), b)) - fwd_ms
+        row = {"lower": lower, "transpose": transpose, "forward_err": err,
+               "grad_err": gerr, "second_order_err": herr,
+               "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+               "k1_launches_per_forward": per_call}
+        rows.append(row)
+        log(f"  sptrsv lower={lower!s:5} transpose={transpose!s:5} "
+            f"err={err:.1e} grad_err={gerr:.1e} 2nd={herr:.1e} forward "
+            f"{fwd_ms:.2f} ms backward {bwd_ms:.2f} ms, K1 launches a "
+            f"forward {per_call:.1f}")
+    return rows
+
+
+def phase_lifecycle(rng, cache_dir: str, tuned: dict) -> tuple:
+    """The operator's life after its build at full size (module doc, phase
+    7).  Returns (result, launch counts of this path)."""
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.sparse import generators
+    mats = {m: getattr(generators, m)(1.0)
+            for m in ("lung2_like", "torso2_like")}
+    TriangularOperator.clear_memory_cache()
+    K.reset_launch_counts()
+    res = {"updates": life_updates(rng, mats),
+           "zero_trap": life_zero_trap(mats),
+           "refactor": life_refactor(rng, mats),
+           "disk": life_disk(mats, cache_dir, tuned),
+           "sptrsv": life_sptrsv(rng, mats)}
+    counts = dict(K.LAUNCHES)
+    log(f"  launches on the life-cycle path: {counts}")
+    check(counts["sptrsv_groups"] > 0 and counts["sptrsv_groups_multi"] > 0,
+          f"a kernel of the life-cycle path was never launched: {counts}")
+    check(counts["plain"] == 0,
+          f"the plain version ran on the life-cycle path: {counts}")
     return res, counts
 
 
@@ -1231,10 +1684,9 @@ def phase_ab(dirs: list, rng) -> list:
     return rows
 
 
-def kernels_line(krows: list, counts: dict, pcg_counts: dict,
-                 tune_counts: dict) -> dict:
+def kernels_line(krows: list, *path_counts: dict) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the three main paths (phases 4, 5 and 6)."""
+    launches summed over the main paths (phases 4 to 7)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -1259,8 +1711,7 @@ def kernels_line(krows: list, counts: dict, pcg_counts: dict,
                    and r["case"] == case and r["R"] == R)
         out.append({"name": name, "route": "cuda", "source": here + src,
                     "replaces": replaces,
-                    "launches": (counts.get(name, 0) + pcg_counts[name]
-                                 + tune_counts.get(name, 0)),
+                    "launches": sum(c.get(name, 0) for c in path_counts),
                     "max_abs_err": max(r["max_abs_err"] for r in krows
                                        if r["kernel"] == name),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
@@ -1287,6 +1738,16 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    # the operators' disk cache goes to a directory of this run's own,
+    # removed at its end; phase 6 leaves its tuned torso2 operator in
+    # `tuned_dir` for phase 7's new process
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        os.environ["REPRO_TORCH_CACHE_DIR"] = str(Path(tmp) / "cache")
+        return run(args, str(Path(tmp) / "tuned"))
+
+
+def run(args, tuned_dir: str) -> int:
     rng = np.random.default_rng(SEED)
     t_start = time.perf_counter()
     log("== 1. card")
@@ -1314,17 +1775,24 @@ def main(argv=None) -> int:
     prows, pcg_counts = phase_pcg(rng)
     log("== 6. the tuner at full size")
     t6 = time.perf_counter()
-    tuner, tune_counts = phase_tuner(rng)
+    tuner, tune_counts = phase_tuner(rng, tuned_dir)
     tuner["seconds"] = time.perf_counter() - t6
     log(f"  phase 6 took {tuner['seconds']:.1f} s")
-    line = kernels_line(krows, counts, pcg_counts, tune_counts)
+    log("== 7. the operator's life cycle at full size")
+    t7 = time.perf_counter()
+    life, life_counts = phase_lifecycle(
+        rng, tuned_dir, tuner["operators"]["torso2_like"]["default"])
+    life["seconds"] = time.perf_counter() - t7
+    log(f"  phase 7 took {life['seconds']:.1f} s")
+    line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": krows,
          "main_path": mrows, "launches": counts, "krylov_path": prows,
          "krylov_launches": pcg_counts, "tuner": tuner,
-         "tuner_launches": tune_counts, "kernels_line": line,
+         "tuner_launches": tune_counts, "life_cycle": life,
+         "life_cycle_launches": life_counts, "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(card["nvidia_smi"])

@@ -4,12 +4,14 @@ from .rewrite import EquationStore, RewriteResult
 from .strategies import (AvgLevelCost, ConstrainedAvgLevelCost,
                          CriticalPathRewrite, ManualEveryK, NoRewrite,
                          Strategy, StrategyStats, strategy_label)
-from .transform import TransformMetrics, TransformedSystem, transform
+from .transform import (TransformMetrics, TransformedSystem,
+                        replay_transform, transform)
 from .portfolio import (STRATEGY_REGISTRY, PairReport, PortfolioCandidate,
                         PortfolioReport, StrategyPortfolio,
                         default_candidates, default_cost_model_for,
                         make_strategy)
 from .portfolio import CostModel as TuningCostModel
-from .resilience import (HealthPolicy, NumericalHealthError,
-                         PatternMismatchError, ResilienceError, RetryPolicy,
+from .resilience import (CacheQuarantineWarning, HealthPolicy,
+                         NumericalHealthError, PatternMismatchError,
+                         ResilienceError, ResilienceWarning, RetryPolicy,
                          SolveGuard, resolve_health_policy)

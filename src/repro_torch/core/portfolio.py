@@ -40,8 +40,8 @@ reps) and re-ranks them.  A candidate whose transform or schedule compile
 raises on the host is reported as failed; a failure on the card raises.
 
 Not ported yet: the tracing span and metric counters around `tune`
-(ROADMAP.md, queue 1, item 10) and the sharded engine the collective
-term prices (item 8).
+(ROADMAP.md, queue 1: observability) and the sharded engine the
+collective term prices (sharded solves).
 """
 from __future__ import annotations
 

@@ -3,9 +3,10 @@ the `SolveGuard` that enforces it.
 
 Copy of the parts of `repro.core.resilience` that the port's operator
 and factorizations use.  The port's solve never repairs and never walks a
-fallback chain: an unhealthy solve raises (the repair/fallback actions,
-engine fallback chains and the cache quarantine are still to be ported,
-see ROADMAP.md).  `RetryPolicy` is the geometric-backoff ladder of the
+fallback chain: an unhealthy solve raises (the repair/fallback actions and
+engine fallback chains are still to be ported, see ROADMAP.md).  A corrupt
+or stale disk-cache entry is quarantined with a `CacheQuarantineWarning`
+and the operator rebuilt on the host.  `RetryPolicy` is the geometric-backoff ladder of the
 diagonal-shift retries in `precond.factorize`.
 
 Error taxonomy
@@ -18,6 +19,12 @@ Error taxonomy
                                  matrix whose sparsity pattern differs from
                                  the frozen one; carries `.where` and
                                  `.detail`
+
+Warning taxonomy
+================
+    ResilienceWarning(UserWarning)
+    └── CacheQuarantineWarning   a disk-cache entry was unreadable or stale
+                                 and moved to `.bad/`
 
 Health policy
 =============
@@ -36,8 +43,8 @@ import os
 import numpy as np
 
 __all__ = ["ResilienceError", "NumericalHealthError", "PatternMismatchError",
-           "HealthPolicy", "SolveGuard", "resolve_health_policy",
-           "RetryPolicy"]
+           "ResilienceWarning", "CacheQuarantineWarning", "HealthPolicy",
+           "SolveGuard", "resolve_health_policy", "RetryPolicy"]
 
 
 # -- error taxonomy -----------------------------------------------------------
@@ -74,6 +81,14 @@ class PatternMismatchError(ResilienceError):
         self.detail = detail
         tail = f" [{detail}]" if detail else ""
         super().__init__(f"{where + ': ' if where else ''}{message}{tail}")
+
+
+class ResilienceWarning(UserWarning):
+    """Base class for resilience-layer warnings (downgrades are loud)."""
+
+
+class CacheQuarantineWarning(ResilienceWarning):
+    """A corrupt/stale disk-cache entry was quarantined to `.bad/`."""
 
 
 # -- health policy ------------------------------------------------------------

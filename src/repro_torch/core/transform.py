@@ -37,11 +37,12 @@ import numpy as np
 from ..sparse.csr import CSR
 from ..sparse.levels import LevelSets, build_levels
 from .graph import GraphView
+from .resilience import PatternMismatchError
 from .rewrite import EquationStore
 from .strategies import Strategy, StrategyStats, strategy_label
 
 __all__ = ["TransformedSystem", "transform", "TransformMetrics",
-           "ReplayPlan"]
+           "ReplayPlan", "replay_transform"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +210,58 @@ def transform(L: CSR, strategy: Strategy, validate: bool = True,
     if validate:
         _validate_equivalence(L, ts, rng_seed)
     return ts
+
+
+def replay_transform(L_new: CSR, ts: TransformedSystem,
+                     where: str = "replay_transform") -> TransformedSystem:
+    """Re-run a frozen transformation against new values on the same pattern.
+
+    Replays `ts.plan` (the committed (row, target) sequence) through a fresh
+    EquationStore on `L_new` — pure numeric elimination over decisions that
+    are already made, so level analysis (`GraphView`/`build_levels`), the
+    strategy, and validation solves are all skipped.  The exported A'/T/src
+    patterns are verified against the frozen ones: an exact floating-point
+    cancellation in the new values can change the rewritten system's fill,
+    and packing drifted values into the frozen schedule would be a finite
+    but wrong answer — so drift raises `PatternMismatchError` instead.
+
+    The caller is responsible for checking that `L_new`'s pattern matches
+    the matrix `ts` was built from (`sparse.csr.same_pattern`); this
+    function only has the transformed system to compare against.
+    """
+    plan = ts.plan
+    if plan is None:
+        raise ValueError(
+            f"{where}: TransformedSystem carries no ReplayPlan (built before "
+            "the refactorization fast path existed) — rebuild with "
+            "transform()/from_csr()")
+    if L_new.n_rows != ts.diag.shape[0]:
+        raise PatternMismatchError(
+            f"matrix has {L_new.n_rows} rows, frozen system has "
+            f"{ts.diag.shape[0]}", where=where, detail="shape")
+    store = EquationStore(L_new, plan.level_of0)
+    for i, target in plan.commits:
+        res = store.rewrite_to_level(i, target)
+        store.commit(i, target, res)
+    A, T, src, d = store.export()
+    from ..sparse.csr import same_pattern
+    if not (same_pattern(A, ts.A) and same_pattern(T, ts.T)
+            and np.array_equal(src, ts.src)):
+        raise PatternMismatchError(
+            "replayed transformation produced different fill than the frozen "
+            "system (an exact cancellation changed the rewritten pattern) — "
+            "rebuild with transform()/from_csr()",
+            where=where, detail="transformed-pattern drift")
+    metrics = dataclasses.replace(ts.metrics,
+                                  max_abs_coef=store.max_abs_coef_seen)
+    B = store.materialize_b(T, src) if ts.B is not None else None
+    return dataclasses.replace(ts, A=A, T=T, src=src, diag=d,
+                               metrics=metrics, B=B)
+
+
+def _strict_lower_csr(L: CSR) -> CSR:
+    from ..sparse.csr import tril
+    return tril(L, keep_diagonal=False)
 
 
 def _recompute_levels(A: CSR) -> np.ndarray:

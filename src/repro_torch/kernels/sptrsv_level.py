@@ -52,6 +52,16 @@ per-step loop in torch on the same packed arrays, writes of a step
 becoming visible only at the step's end, so a packing bug fails the CPU
 tests.
 
+* **Value refresh** (`refresh_packed_values`).  The packing keeps a map
+  of where each value landed (`ValueMap`: the tile or `far` word of every
+  kept coefficient and of every 1/diag, keyed by the schedule's flat value
+  slot).  New values on the same schedule layout (a value update on a
+  frozen pattern) are written through it on the device, one gather and
+  one scatter per array, into clones of `tiles` and `far`: no host
+  re-pack.  Because the packing drops coefficients that are 0 and
+  re-levels without them, a refresh first compares the new zero set with
+  the dropped one; when they differ it packs the new schedule anew.
+
 K1's stamped form (`sptrsv_groups_stamped`) is the same kernel compiled
 with clock64() stamps at the end of every tile step, for the per-step
 profile (`repro_torch.obs.profile`); the free pass runs as its own launch
@@ -60,7 +70,8 @@ so that events time it alone.
 Dispatch: a wrapper given CPU tensors runs the plain version
 (`kernels/ref.py`) and counts it under "plain"; given CUDA tensors it
 launches the kernel or raises.  `LAUNCHES` counts solves per entry point
-(one per solve, the dependency-free pass included).
+(one per solve, the dependency-free pass included); `PACKS` counts host
+packs, device value refreshes, and the refreshes that had to re-pack.
 """
 from __future__ import annotations
 
@@ -75,7 +86,8 @@ import torch
 
 from . import ref
 
-__all__ = ["PackedSchedule", "pack_groups", "pack_schedule",
+__all__ = ["PackedSchedule", "ValueMap", "pack_groups", "pack_schedule",
+           "refresh_packed_values", "schedule_values", "PACKS",
            "unpack_tiles", "emulate_packed", "sptrsv_groups",
            "sptrsv_groups_multi", "sptrsv_levels", "sptrsv_groups_stamped",
            "StampedSolve", "step_flops", "step_bytes",
@@ -110,9 +122,60 @@ NARROW_LANES = 32           # a step of at most this many lanes (none long) is
 ROUND_WARPS = 75.0
 
 
+# host packs (`pack_groups`), value refreshes on the packed arrays, and
+# the refreshes that found the zero set moved and re-packed
+PACKS = {"pack_groups": 0, "refreshes": 0, "repacks": 0}
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ValueMap:
+    """Where `pack_groups` put each value of the schedule it packed, as
+    host arrays (int64).  A source indexes the schedule's flat value buffer
+    (`schedule_values`: every group's dep_coef raveled in group order, then
+    every group's dinv).
+
+    tile_word, tile_src   words of `tiles` holding float32 values (each
+                          kept coefficient and each tile lane's 1/diag) and
+                          their sources
+    far_word, far_src     the same for the coefficients kept in `far`
+    free_src              the source of each `free_dinv` entry
+    kept, dropped         dep_coef slots of the real lanes that the packing
+                          kept (non-zero) and dropped (zero)
+    coef_slots, dinv_slots  the sizes of the buffer's two parts
+
+    `staged(device)` holds the index arrays as device tensors, once per
+    device (never pickled).
+    """
+
+    tile_word: np.ndarray
+    tile_src: np.ndarray
+    far_word: np.ndarray
+    far_src: np.ndarray
+    free_src: np.ndarray
+    kept: np.ndarray
+    dropped: np.ndarray
+    coef_slots: int
+    dinv_slots: int
+    _staged: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def staged(self, device) -> tuple:
+        """(tile_word, tile_src, far_word, far_src, free_src) on device."""
+        key = str(torch.device(device))
+        got = self._staged.get(key)
+        if got is None:
+            got = self._staged[key] = tuple(
+                torch.from_numpy(a).to(device) for a in (
+                    self.tile_word, self.tile_src, self.far_word,
+                    self.far_src, self.free_src))
+        return got
+
+    def __getstate__(self):
+        return dict(self.__dict__, _staged={})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +198,8 @@ class PackedSchedule:
                               numpy), from which the launch sizes the block
     step_rows, step_deps      rows and deps of each of the num_steps steps,
                               the free pass's first (host numpy)
+    values                    where each value of the schedule landed
+                              (`ValueMap`), for `refresh_packed_values`
     """
 
     tiles: torch.Tensor
@@ -159,6 +224,8 @@ class PackedSchedule:
     pack_s: float
     consumers: dict = dataclasses.field(default_factory=dict, repr=False,
                                         compare=False)
+    values: ValueMap | None = dataclasses.field(default=None, repr=False,
+                                                compare=False)
 
     @property
     def num_tiles(self) -> int:
@@ -216,12 +283,17 @@ def _gather_deps(ptr: np.ndarray, order: np.ndarray) -> np.ndarray:
 def _flat_lanes(groups, n: int, n_carry: int) -> dict:
     """The groups' real lanes, step-major (within a step: group order, then
     lane order).  A lane that neither finalizes a row nor writes a carry
-    (padding) is dropped, and so is a dep slot with coefficient 0."""
+    (padding) is dropped, and so is a dep slot with coefficient 0.  Each
+    lane keeps its 1/diag's flat slot ("dslot") and each dep its
+    coefficient's ("slot"); "dropped" lists the real lanes' slots dropped
+    as zeros ("coef_slots"/"dinv_slots": the flat sizes)."""
     cols = {k: [] for k in ("step", "row", "cin", "cout", "dinv", "cnt",
-                            "idx", "coef")}
+                            "idx", "coef", "slot", "dslot", "dropped")}
+    off_c = off_d = 0
     for g in groups:
         row = _np(g[0])
         idx, coef, dinv = _np(g[1]), _np(g[2]), _np(g[3])
+        C, D = coef.shape[1], coef.shape[2]
         if len(g) == 6:
             cin, cout = _np(g[4]), _np(g[5])
         else:
@@ -229,6 +301,13 @@ def _flat_lanes(groups, n: int, n_carry: int) -> dict:
             cout = np.full(row.shape, n_carry + 1, dtype=np.int64)
         s_i, c_i = np.nonzero((row != n) | (cout != n_carry + 1))
         keep = coef[s_i, c_i] != 0                      # (lanes, D)
+        lane = s_i.astype(np.int64) * C + c_i
+        slot = off_c + lane[:, None] * D + np.arange(D)
+        cols["slot"].append(slot[keep])
+        cols["dropped"].append(slot[~keep])
+        cols["dslot"].append(off_d + lane)
+        off_c += coef.size
+        off_d += dinv.size
         cols["step"].append(s_i)
         cols["row"].append(row[s_i, c_i])
         cols["cin"].append(cin[s_i, c_i])
@@ -243,24 +322,26 @@ def _flat_lanes(groups, n: int, n_carry: int) -> dict:
     order = np.argsort(cat["step"], kind="stable")
     gather = _gather_deps(_ptr(cat["cnt"]), order)
     out = {k: cat[k][order] for k in ("step", "row", "cin", "cout", "dinv",
-                                      "cnt")}
-    out["idx"], out["coef"] = cat["idx"][gather], cat["coef"][gather]
+                                      "cnt", "dslot")}
+    for k in ("idx", "coef", "slot"):
+        out[k] = cat[k][gather]
+    out.update(dropped=cat["dropped"], coef_slots=off_c, dinv_slots=off_d)
     return out
 
 
 def _fuse_chains(lanes: dict, n: int, n_carry: int) -> dict:
     """Fuse each carry chain (partial lanes linked carry_out -> carry_in)
     into its final lane, which then holds all of the row's deps in chain
-    order.  Returns per fused lane: row, dinv, step (the final lane's
-    schedule step), cnt, and the flat idx/coef; lanes stay sorted by
-    step."""
+    order.  Returns per fused lane: row, dinv and its slot, step (the
+    final lane's schedule step), cnt, and the flat idx/coef/slot; lanes
+    stay sorted by step."""
     row, step, cin, cout = (lanes[k] for k in ("row", "step", "cin",
                                                "cout"))
     writes = cout != n_carry + 1
     reads = cin != n_carry
     if not (writes.any() or reads.any()):
-        return {k: lanes[k] for k in ("row", "dinv", "step", "cnt", "idx",
-                                      "coef")}
+        return {k: lanes[k] for k in ("row", "dinv", "dslot", "step", "cnt",
+                                      "idx", "coef", "slot")}
     if ((cout[writes] < 0) | (cout[writes] >= n_carry)).any() or \
             ((cin[reads] < 0) | (cin[reads] >= n_carry)).any():
         raise ValueError("a carry slot lies outside [0, n_carry)")
@@ -296,8 +377,9 @@ def _fuse_chains(lanes: dict, n: int, n_carry: int) -> dict:
                             weights=lanes["cnt"][order],
                             minlength=finals.size).astype(np.int64)
     return {"row": row[finals], "dinv": lanes["dinv"][finals],
-            "step": step[finals], "cnt": fused_cnt,
-            "idx": lanes["idx"][gather], "coef": lanes["coef"][gather]}
+            "dslot": lanes["dslot"][finals], "step": step[finals],
+            "cnt": fused_cnt, "idx": lanes["idx"][gather],
+            "coef": lanes["coef"][gather], "slot": lanes["slot"][gather]}
 
 
 def _relevel(fused: dict, n: int) -> np.ndarray:
@@ -372,9 +454,11 @@ def pack_groups(groups, n: int, n_carry: int) -> PackedSchedule:
     (module doc); the dependency-free rows go to the free pass.  Raises on
     a malformed carry chain (a slot with more than one writer or reader)
     and on a lane that reads a row no earlier step finalizes."""
+    PACKS["pack_groups"] += 1
     t0 = time.perf_counter()
     num_sched_steps = int(_np(groups[0][0]).shape[0]) if groups else 0
-    fused = _fuse_chains(_flat_lanes(groups, n, n_carry), n, n_carry)
+    flat = _flat_lanes(groups, n, n_carry)
+    fused = _fuse_chains(flat, n, n_carry)
     lvl = _relevel(fused, n)
     row, cnt = fused["row"], fused["cnt"]
     num_steps = int(lvl.max()) + 1 if lvl.size else 0
@@ -434,10 +518,20 @@ def pack_groups(groups, n: int, n_carry: int) -> PackedSchedule:
         2 * _segment_arange(t_cnt[~t_far])
     words[dst] = fused["idx"][src]
     words[dst + 1] = fused["coef"][src].astype(np.float32).view(np.int32)
+    tile_word = np.concatenate([dst + 1, rec + 1])
+    tile_src = np.concatenate([fused["slot"][src],
+                               flat["coef_slots"] + fused["dslot"][tl]])
     src = _gather_deps(ptr, tl[t_far])
     far = np.empty((src.size, 2), dtype=np.int32)
     far[:, 0] = fused["idx"][src]
     far[:, 1] = fused["coef"][src].astype(np.float32).view(np.int32)
+    values = ValueMap(
+        tile_word=tile_word, tile_src=tile_src,
+        far_word=2 * np.arange(src.size, dtype=np.int64) + 1,
+        far_src=fused["slot"][src],
+        free_src=flat["coef_slots"] + fused["dslot"][free],
+        kept=fused["slot"], dropped=flat["dropped"],
+        coef_slots=flat["coef_slots"], dinv_slots=flat["dinv_slots"])
 
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
@@ -463,7 +557,50 @@ def pack_groups(groups, n: int, n_carry: int) -> PackedSchedule:
                               minlength=num_steps).astype(np.int64),
         num_lanes=int(row.size), num_deps=int(cnt.sum()),
         long_lanes=int(long_.sum()), widest_step=widest,
-        pack_s=time.perf_counter() - t0)
+        pack_s=time.perf_counter() - t0, values=values)
+
+
+def schedule_values(sched) -> np.ndarray:
+    """A LevelSchedule's flat value buffer, as `ValueMap` indexes it: every
+    group's dep_coef raveled in group order, then every group's dinv."""
+    return np.concatenate([g.dep_coef.ravel() for g in sched.groups] +
+                          [g.dinv.ravel() for g in sched.groups])
+
+
+def refresh_packed_values(packed: PackedSchedule, sched) -> tuple:
+    """The packed form of `sched`, a LevelSchedule with the layout of the
+    one `packed` was packed from and new values (`repack_schedule_values`):
+    (PackedSchedule, repacked).
+
+    When the coefficients that are 0 (in the schedule's dtype) are the
+    ones the packing dropped, the new float32 coefficients and 1/diag are
+    scattered through `packed.values` into clones of `tiles` and `far` and
+    a new `free_dinv`, on `packed`'s device (CPU tensors take the same
+    torch ops); everything else is shared.  Otherwise the dependency DAG
+    the packing re-levelled has changed, and `sched` is packed anew
+    (`repacked` True).  `packed`'s own tensors are never written."""
+    vm = packed.values
+    if vm is None:
+        raise ValueError("the packed schedule carries no value map; pack it "
+                         "with pack_groups")
+    vals = schedule_values(sched)
+    if vals.size != vm.coef_slots + vm.dinv_slots:
+        raise ValueError(f"the schedule holds {vals.size} value slots, the "
+                         f"packed one was packed from "
+                         f"{vm.coef_slots + vm.dinv_slots}")
+    dev = packed.tiles.device
+    coef = vals[:vm.coef_slots]
+    if (coef[vm.kept] == 0).any() or (coef[vm.dropped] != 0).any():
+        PACKS["repacks"] += 1
+        return pack_schedule(sched).to(dev), True
+    tile_word, tile_src, far_word, far_src, free_src = vm.staged(dev)
+    v = torch.from_numpy(np.asarray(vals, dtype=np.float32)).to(dev)
+    tiles, far = packed.tiles.clone(), packed.far.clone()
+    tiles.view(torch.float32).index_copy_(0, tile_word, v[tile_src])
+    far.view(torch.float32).index_copy_(0, far_word, v[far_src])
+    PACKS["refreshes"] += 1
+    return dataclasses.replace(packed, tiles=tiles, far=far,
+                               free_dinv=v[free_src]), False
 
 
 def pack_schedule(sched) -> PackedSchedule:

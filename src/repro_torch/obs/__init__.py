@@ -1,7 +1,7 @@
 """Observability: the per-step schedule profiler (port of `repro.obs`'s
 `profile` module) and the calibration of the tuner's cost constants
 from it (`calibrate`).  Tracing, the metrics registry and the exporters
-are not ported yet (ROADMAP.md, queue 1, item 10)."""
+are not ported yet (ROADMAP.md, queue 1: observability)."""
 from .profile import (ScheduleProfile, merge_profiles, profile_operator,
                       profile_schedule)
 

@@ -27,8 +27,8 @@ fits them to one.  Two engines, two methods:
 
 Clocks are injected (`clock=time.perf_counter` by default) for the CPU
 method.  Not ported yet: `ProfilingEngine`, the sharded path's collective
-split (ROADMAP.md, queue 1, items 10 and 8) and the `_STEP_FAULT` seam of
-the fault injectors (item 5).
+split (ROADMAP.md, queue 1: observability, sharded solves) and the
+`_STEP_FAULT` seam of the fault injectors (resilience).
 """
 from __future__ import annotations
 

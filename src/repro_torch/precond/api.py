@@ -22,9 +22,13 @@ Port of `repro.precond.api`:
 `device_apply` (both sweeps on the operators' device, tensor out), a
 numpy array through the host `apply` (float64 numpy out).
 
-Not ported yet, each raising NotImplementedError (ROADMAP.md, queue 1):
-`refactor` (needs `update_values`, item 3) and `mesh=` (sharded sweeps,
-item 8).
+`P.refactor(A_new)` re-factors a matrix on the same pattern and re-binds
+both operators through `TriangularOperator.update_values` (on the card,
+a device refresh of the SpTRSV kernel's packed tiles); the pair decision
+and everything structural are kept.
+
+Not ported yet (ROADMAP.md, queue 1: sharded solves): `mesh=` raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -106,7 +110,7 @@ class Preconditioner:
     def from_factors(cls, fac: FactorResult, tune="auto", *, system=None,
                      chunk: int = 256, max_deps: int = 16, dtype=np.float32,
                      engine=None, device=None, mesh=None,
-                     cache: bool = True, cost_model=None,
+                     cache: bool = True, cache_dir=None, cost_model=None,
                      measure_top_k: int = 0) -> "Preconditioner":
         """Build the operator pair for an existing FactorResult.
 
@@ -127,7 +131,7 @@ class Preconditioner:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= needs the port's sharded solves (ROADMAP.md, queue "
-                "1, item 8: sharded solves)")
+                "1: sharded solves)")
         report = None
         if isinstance(tune, str) and tune == "auto":
             tune, report = cls._pair_decision(
@@ -135,7 +139,8 @@ class Preconditioner:
                 engine=engine, device=device, cost_model=cost_model,
                 measure_top_k=measure_top_k)
         op_kw = dict(chunk=chunk, max_deps=max_deps, dtype=dtype,
-                     engine=engine, device=device, cache=cache)
+                     engine=engine, device=device, cache=cache,
+                     cache_dir=cache_dir)
         forward = TriangularOperator.from_csr(fac.L, tune, side="lower",
                                               transpose=False, **op_kw)
         if fac.kind == "ic0":
@@ -260,15 +265,27 @@ class Preconditioner:
             cls._pair_decisions.clear()
 
     def refactor(self, new_A: CSR, **factor_kwargs) -> "Preconditioner":
-        """Numeric-only re-preconditioning for a new A on the same pattern:
-        not ported yet.  It re-binds both operators through
-        `TriangularOperator.update_values`, which the port does not have
-        (ROADMAP.md, queue 1, item 3); build a new Preconditioner instead.
+        """Numeric-only re-preconditioning for a new A on the SAME pattern.
+
+        The refactorization fast path for time-stepping / Newton outer
+        loops: re-runs only the ic0/ilu0 value sweep over the frozen
+        pattern plan (`factorize.refactor`), then re-binds both triangular
+        operators in place through `TriangularOperator.update_values` —
+        pair tuning, level analysis, transformations and schedule layouts
+        are all reused.  Mutates this preconditioner and returns self.
+
+        A pattern-changing A raises PatternMismatchError (build a fresh
+        Preconditioner instead); `factor_kwargs` forwards shift0 /
+        max_shift_attempts / breakdown_rtol to `factorize.refactor`.
         """
-        raise NotImplementedError(
-            "Preconditioner.refactor needs TriangularOperator.update_values, "
-            "which the port does not have yet (ROADMAP.md, queue 1, item 3: "
-            "update_values); build a new Preconditioner.ic0/ilu0(A) instead")
+        fac = factorize.refactor(self.factors, new_A, **factor_kwargs)
+        self.forward.update_values(fac.L)
+        self.backward.update_values(fac.L if fac.kind == "ic0" else fac.U)
+        self.factors = fac
+        # composed device pipelines close over the old payloads' staged
+        # schedules — drop them so the next device_apply recomposes
+        self._device_fns.clear()
+        return self
 
     # -- application ----------------------------------------------------------
     @property

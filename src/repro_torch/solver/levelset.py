@@ -64,15 +64,18 @@ class DeviceSchedule:
     Each format is staged at first use, so a device holds only what its
     engine reads: `groups` (the padded width groups, for the plain engine
     and the plain versions) or `packed()` (the CUDA kernel's lane list).
+    `packed` hands in the schedule's packed form already made (kept on the
+    operator's payload, loaded from the disk cache, or refreshed with new
+    values), so that `packed()` does not pack it again.
     """
 
-    def __init__(self, sched: LevelSchedule, device):
+    def __init__(self, sched: LevelSchedule, device, packed=None):
         self.host = sched
         self.device = torch.device(device)
         self.n = sched.n
         self.n_carry = sched.n_carry
         self.dtype = sched.dtype
-        self._packed = None
+        self._packed = None if packed is None else packed.to(self.device)
 
     @functools.cached_property
     def groups(self) -> tuple:
@@ -85,16 +88,17 @@ class DeviceSchedule:
             for g in self.host.groups)
 
     def packed(self):
-        """The CUDA kernel's step-major lane list, packed on the host from
-        the host schedule and staged on this device once."""
+        """The CUDA kernel's step-major lane list: the one handed in, else
+        packed on the host from the host schedule and staged on this device
+        once."""
         if self._packed is None:
             from ..kernels.sptrsv_level import pack_schedule
             self._packed = pack_schedule(self.host).to(self.device)
         return self._packed
 
 
-def to_device(sched: LevelSchedule, device) -> DeviceSchedule:
-    return DeviceSchedule(sched, device)
+def to_device(sched: LevelSchedule, device, packed=None) -> DeviceSchedule:
+    return DeviceSchedule(sched, device, packed)
 
 
 def _group_body(x, carry, c_pad, leaves_g):

@@ -11,11 +11,36 @@ Port of `repro.solver.operator`:
 strategy-portfolio tuner (`tune="auto"`, the default; `op.report` holds
 its ranked report) or the graph transformation for the named strategy,
 compiles the width-bucketed LevelSchedule (the numpy host half, copied
-from `repro`), and keeps the artifact in an in-memory cache keyed by the
-matrix fingerprint and the configuration.  The schedule is staged once
-per device; the engine is the CUDA kernel on a card and the plain
-PyTorch body on the CPU.  The device is `cuda` unless the caller passes
-`device="cpu"`; without CUDA and without `device=`, construction raises.
+from `repro`), and caches the artifact in memory and on disk
+(REPRO_TORCH_CACHE_DIR or ~/.cache/repro-torch-sptrsv).  The schedule is
+staged once per device; the engine is the CUDA kernel on a card and the
+plain PyTorch body on the CPU.  The device is `cuda` unless the caller
+passes `device="cpu"`; without CUDA and without `device=`, construction
+raises.
+
+The cache key is a PATTERN segment (sparsity structure + configuration)
+and a VALUE segment (`torch-op-{pattern}-{config}-{values}.pkl`).  A
+`from_csr` whose pattern and configuration match a cached artifact but
+whose values differ derives the new payload through the value-update
+fast path (`cache_source == "pattern"`) instead of re-tuning, and
+`op.update_values(new_L)` is its in-place form for time-stepping loops:
+`replay_transform` re-runs the frozen transformation's eliminations,
+`repack_schedule_values` refills the schedules, and on the card the SpTRSV
+kernel's packed tiles are refreshed on the device
+(`kernels.sptrsv_level.refresh_packed_values`); they are packed anew only
+when the set of coefficients that are 0 in float32 moved.  A changed
+pattern raises `PatternMismatchError`.
+
+The disk tier is the port's own: its directory, file prefix and
+CACHE_VERSION differ from the reference's, whose entries unpickle into
+the reference's classes (and through them jax).  An entry holds host
+data only: the transform, the schedules (main and T-factor preamble),
+the slim tuner report, the configuration and, for an operator built on a
+card, both schedules' packed forms with their value maps, so a hit on
+the card packs nothing.  Writes are atomic (a uniquely named temporary
+sibling, then `os.replace`); an entry that fails to load (corrupt bytes,
+stale CACHE_VERSION) is moved to a `.bad/` sibling directory with a
+`CacheQuarantineWarning` and the artifact is rebuilt.
 
 All four triangular sweeps share one lower-triangular pipeline:
 `side="lower"|"upper"` selects the stored triangle, `transpose=True`
@@ -29,16 +54,22 @@ or (under `health="strict"`) a large residual raises
 `NumericalHealthError`.  Nothing is repaired, and no engine stands in for
 a failing one.
 
-Not ported yet (ROADMAP.md, queue 1): the disk cache, `update_values`,
-`mesh=`, engine fallback chains, health repair and the host-reference
-escape hatch, and tracing spans.
+Not ported yet (ROADMAP.md, queue 1): `mesh=`, engine fallback chains,
+health repair and the host-reference escape hatch, the strict health
+level's schedule verification (at build and on `update_values`), and
+tracing spans.
 """
 from __future__ import annotations
 
 import collections
 import hashlib
+import os
+import pickle
 import threading
 import time
+import uuid
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,10 +77,13 @@ import torch
 from ..sparse.csr import CSR, reverse_both
 
 __all__ = ["TriangularOperator", "OperatorStats", "matrix_fingerprint",
-           "value_fingerprint", "orient_lower", "compose_sweep_fn",
-           "candidate_sweep_fn"]
+           "value_fingerprint", "default_cache_dir", "orient_lower",
+           "compose_sweep_fn", "candidate_sweep_fn"]
 
-CACHE_VERSION = 3
+# the port's own: never equal to the reference's (an int), so that neither
+# package would take the other's entry for a current one
+CACHE_VERSION = "repro_torch-1"
+CACHE_PREFIX = "torch-op-"      # the reference's entries are "op-*.pkl"
 
 
 def orient_lower(A: CSR, side: str, transpose: bool) -> tuple:
@@ -120,6 +154,15 @@ def candidate_sweep_fn(ts, sched, engine, device, reversed_: bool = False):
                             row_pos, reversed_)
 
 
+def default_cache_dir() -> Path:
+    """REPRO_TORCH_CACHE_DIR env override, else ~/.cache/repro-torch-sptrsv
+    (the reference's is REPRO_CACHE_DIR or ~/.cache/repro-sptrsv)."""
+    env = os.environ.get("REPRO_TORCH_CACHE_DIR")
+    if env:
+        return Path(env)
+    return Path(os.path.expanduser("~/.cache")) / "repro-torch-sptrsv"
+
+
 def matrix_fingerprint(L: CSR, include_values: bool = True) -> str:
     """Stable hash of a CSR matrix: shape + pattern (+ values by default)."""
     h = hashlib.sha256()
@@ -145,6 +188,8 @@ class OperatorStats:
     The field names and `to_dict()` match the reference's; the metrics-
     registry view behind them is still to be ported.  Updates take one
     lock per event, so concurrent solves never interleave a record.
+    `repacks` (the port's own, outside `to_dict()`) counts the value
+    updates whose new zero set made the SpTRSV kernel's packing run anew.
     """
 
     _FIELDS = ("solves", "rhs_columns", "refine_rounds", "total_solve_ms",
@@ -163,10 +208,11 @@ class OperatorStats:
         self.last_residual = float("nan")
         self.cache_source = cache_source
         self.tune_ms = float(tune_ms)
-        # the port neither updates values, falls back nor repairs yet:
-        # these stay at their initial values
         self.value_updates = 0
         self.last_update_ms = 0.0
+        self.repacks = 0
+        # the port neither falls back nor repairs yet: these stay at their
+        # initial values
         self.fallbacks = 0
         self.fallback_downgrades = 0
         self.last_fallback = ""
@@ -187,6 +233,14 @@ class OperatorStats:
             self.last_solve_ms = ms
             self.last_residual = residual
 
+    def record_value_update(self, *, ms: float, cache_source: str,
+                            repacks: int) -> None:
+        with self._lock:
+            self.value_updates += 1
+            self.last_update_ms = ms
+            self.cache_source = cache_source
+            self.repacks += repacks
+
     def record_health_event(self, last: str) -> None:
         with self._lock:
             self.health_events += 1
@@ -197,14 +251,48 @@ class OperatorStats:
             f"{k}={v!r}" for k, v in self.to_dict().items()) + ")"
 
 
+def _payload_preamble(payload: dict):
+    """(LevelSchedule|None, src, row_pos) of the payload's T-factor
+    preamble, compiled once and kept on it (persisted)."""
+    entry = payload.get("preamble")
+    if entry is None:
+        from .schedule import schedule_for_preamble
+        cfg = payload["config"]
+        entry = payload["preamble"] = schedule_for_preamble(
+            payload["ts"], chunk=cfg["chunk"], max_deps=cfg["max_deps"],
+            dtype=np.dtype(cfg["dtype"]))
+    return entry
+
+
+def _payload_packed(payload: dict, which: str):
+    """The payload's packed form of its main schedule ("packed") or of its
+    preamble's ("preamble_packed"; None for an identity preamble), packed
+    on the host once and kept on it (persisted).  It lies where it was
+    last moved to: on the host after a pack or a disk load, on the card
+    once an operator there staged it."""
+    packed = payload.get(which)
+    if packed is None:
+        from ..kernels.sptrsv_level import pack_schedule
+        sched = payload["sched"] if which == "packed" else \
+            _payload_preamble(payload)[0]
+        if sched is None:
+            return None
+        packed = payload[which] = pack_schedule(sched)
+    return packed
+
+
 class TriangularOperator:
     """Compiled triangular-solve operator for one matrix (see module doc)."""
 
     # bounded LRU: payloads hold full transforms + ELL tiles (MB-scale per
     # large matrix), so a long-lived process over many matrices must not
-    # accumulate them forever
+    # accumulate them forever; overflow falls back to the disk cache
     _memory_cache_max: int = 16
     _memory_cache = collections.OrderedDict()
+    # pattern segment of the key ("{pattern32}-{config16}") -> latest full
+    # key stored: lets from_csr find an equal-pattern payload to derive
+    # from without scanning the LRU
+    _pattern_index: dict = {}
     _cache_lock = threading.RLock()
 
     @classmethod
@@ -220,18 +308,27 @@ class TriangularOperator:
         with cls._cache_lock:
             cls._memory_cache[key] = payload
             cls._memory_cache.move_to_end(key)
+            cls._pattern_index[key.rsplit("-", 1)[0]] = key
             while len(cls._memory_cache) > cls._memory_cache_max:
                 cls._memory_cache.popitem(last=False)
+
+    @classmethod
+    def _memory_get_pattern(cls, pattern_key: str):
+        """Newest in-memory payload whose pattern+config segment matches
+        (one lock acquisition for index lookup + LRU touch)."""
+        with cls._cache_lock:
+            return cls._memory_get(cls._pattern_index.get(pattern_key, ""))
 
     @classmethod
     def clear_memory_cache(cls) -> None:
         with cls._cache_lock:
             cls._memory_cache.clear()
+            cls._pattern_index.clear()
 
     def __init__(self, L: CSR, payload: dict, cache_source: str, *,
                  device: torch.device, engine):
         self._L = L                 # the ORIGINAL matrix, as handed in
-        self._payload = payload
+        self._payload = payload     # update_values derives from + rebinds it
         self._ts = payload["ts"]    # transform of the oriented lower system
         self._sched = payload["sched"]
         self.report = payload.get("report")        # slim PortfolioReport|None
@@ -264,10 +361,10 @@ class TriangularOperator:
     def from_csr(cls, L: CSR, tune="auto", *, side: str = "lower",
                  transpose: bool = False, chunk: int = 256,
                  max_deps: int = 16, dtype=np.float32, engine=None,
-                 device=None, cache: bool = True, portfolio=None,
-                 cost_model=None,
+                 device=None, cache: bool = True, cache_dir=None,
+                 portfolio=None, cost_model=None,
                  measure_top_k: int = 0) -> "TriangularOperator":
-        """Build (or fetch from the memory cache) the operator for L.
+        """Build (or load) the operator for L.
 
         side/transpose: which sweep this operator performs (module doc).
         tune:   "auto" — run the StrategyPortfolio tuner and take its pick
@@ -279,8 +376,11 @@ class TriangularOperator:
         device: "cuda" (the default when None) or "cpu"; None without CUDA
                 raises RuntimeError.  On a card the build also packs and
                 stages the sweep's schedules (main and preamble).
-        cache:  look up / keep the compiled artifact in memory, keyed by
-                the matrix fingerprint and the configuration.
+        cache:  look up / keep the compiled artifact in memory and on disk
+                (memory, then disk, then an equal-pattern artifact of
+                either re-bound to L's values: module doc), keyed by the
+                matrix fingerprint and the configuration.
+        cache_dir: the disk tier's directory (None: `default_cache_dir()`).
         cost_model: the tuner's constants (a portfolio CostModel; None:
                 `default_cost_model_for(engine)`); part of the cache key.
                 tune="auto" only.
@@ -326,12 +426,11 @@ class TriangularOperator:
         build_kwargs = {"side": side, "transpose": bool(transpose),
                         "chunk": chunk, "max_deps": max_deps, "dtype": dtype,
                         "engine": eng, "device": dev, "cache": cache,
-                        "portfolio": portfolio, "cost_model": cost_model,
+                        "cache_dir": cache_dir, "portfolio": portfolio,
+                        "cost_model": cost_model,
                         "measure_top_k": measure_top_k}
-        key = (matrix_fingerprint(L, include_values=False) + "-" +
-               hashlib.sha256(repr(sorted(cfg.items())).encode()
-                              ).hexdigest()[:16] + "-" +
-               value_fingerprint(L))
+        pattern_key = cls._pattern_cache_key(L, cfg)
+        key = f"{pattern_key}-{value_fingerprint(L)}"
 
         def _finish(payload, source):
             op = cls(L, payload, cache_source=source, device=dev, engine=eng)
@@ -346,6 +445,21 @@ class TriangularOperator:
             payload = cls._memory_get(key)
             if payload is not None:
                 return _finish(payload, "memory")
+            payload = cls._disk_load(key, cache_dir)
+            if payload is not None:
+                cls._memory_put(key, payload)
+                return _finish(payload, "disk")
+            # no exact hit: an equal-pattern artifact (any values) can be
+            # numerically re-bound without re-tuning or re-compiling
+            base = cls._memory_get_pattern(pattern_key)
+            if base is None:
+                base = cls._disk_load_pattern(pattern_key, cache_dir)
+            if base is not None:
+                payload = cls._try_derive_payload(base, L)
+                if payload is not None:
+                    cls._memory_put(key, payload)
+                    cls._disk_store(key, payload, cache_dir)
+                    return _finish(payload, "pattern")
         L_eff, reversed_ = orient_lower(L, side, bool(transpose))
         t0 = time.perf_counter()
         report = None
@@ -369,8 +483,14 @@ class TriangularOperator:
                    "sched": sched, "report": report, "config": cfg,
                    "reversed": reversed_,
                    "tune_ms": (time.perf_counter() - t0) * 1e3}
+        if dev.type == "cuda":
+            # packed before the disk store, so that the entry carries the
+            # packed forms and a later hit on a card packs nothing
+            for which in ("packed", "preamble_packed"):
+                _payload_packed(payload, which)
         if cache:
             cls._memory_put(key, payload)
+            cls._disk_store(key, payload, cache_dir)
         return _finish(payload, "built")
 
     def transposed(self) -> "TriangularOperator":
@@ -382,6 +502,244 @@ class TriangularOperator:
         tune = kw.pop("tune")
         return TriangularOperator.from_csr(self._L, tune, **kw)
 
+    # -- pattern-frozen value updates -----------------------------------------
+    @classmethod
+    def _derive_payload(cls, base: dict, L_new: CSR) -> tuple:
+        """Re-bind an equal-pattern payload to new numeric values:
+        (payload, repacks).
+
+        Reuses everything structure-derived from `base` — level analysis,
+        the winning strategy's transformation (replayed numerically via its
+        commit log), the schedules' layout and, where `base` holds them,
+        the SpTRSV kernel's packed tiles, whose values are refreshed where
+        they lie (on the card: device scatters, no host re-pack).  A packed
+        schedule whose zero set moved is packed anew; `repacks` counts
+        those.  Raises PatternMismatchError if the new values make the
+        replayed transformation's pattern drift (exact cancellation
+        creating/removing fill), ValueError if `base` predates the plans.
+        The new payload starts with no staged state of its own.
+        """
+        from ..core.transform import replay_transform
+        from ..kernels.sptrsv_level import refresh_packed_values
+        from .schedule import repack_schedule_values, schedule_for_preamble
+        cfg = base["config"]
+        L_eff, reversed_ = orient_lower(L_new, cfg["side"],
+                                        bool(cfg["transpose"]))
+        ts_new = replay_transform(L_eff, base["ts"],
+                                  where="TriangularOperator.update_values")
+        sched_new = repack_schedule_values(base["sched"], ts_new.A.data,
+                                           ts_new.diag)
+        payload = {"version": CACHE_VERSION, "strategy": base["strategy"],
+                   "ts": ts_new, "sched": sched_new,
+                   "report": base.get("report"), "config": cfg,
+                   "reversed": reversed_,
+                   "tune_ms": base.get("tune_ms", 0.0)}
+        # the preamble schedule (solve with the T factor) is value-bound
+        # too; repack it from the base entry when its value plan survived
+        # renumbering.  If the base never materialized it, stay lazy — the
+        # operator's _preamble_host builds it from the NEW transform on
+        # first use, so the update itself never enters build_schedule.
+        entry = base.get("preamble")
+        refresh = {"packed": sched_new}
+        if entry is not None:
+            psched = entry[0]
+            if psched is None:
+                payload["preamble"] = entry
+            elif psched.value_plan is not None:
+                payload["preamble"] = (
+                    repack_schedule_values(psched, ts_new.T.data,
+                                           np.ones(ts_new.T.n_rows)),
+                    entry[1], entry[2])
+                refresh["preamble_packed"] = payload["preamble"][0]
+            else:
+                payload["preamble"] = schedule_for_preamble(
+                    ts_new, chunk=cfg["chunk"], max_deps=cfg["max_deps"],
+                    dtype=np.dtype(cfg["dtype"]))
+        repacks = 0
+        for which, sched in refresh.items():
+            if base.get(which) is not None:
+                payload[which], repacked = refresh_packed_values(
+                    base[which], sched)
+                repacks += int(repacked)
+        return payload, repacks
+
+    @classmethod
+    def _try_derive_payload(cls, base: dict, L_new: CSR) -> dict | None:
+        """_derive_payload for opportunistic from_csr use: a pattern drift
+        or a pre-plan payload means "can't fast-path", not an error — the
+        caller falls through to a full build."""
+        from ..core.resilience import PatternMismatchError
+        try:
+            return cls._derive_payload(base, L_new)[0]
+        except (PatternMismatchError, ValueError):
+            return None
+
+    def update_values(self, new_L: CSR, *, health=None) -> "TriangularOperator":
+        """Re-bind this operator to new numeric values on the SAME pattern.
+
+        The refactorization fast path for time-stepping / Newton loops
+        where the sparsity pattern is fixed and values change every step:
+        level analysis, the graph transformation, the tuner's pick and the
+        schedules' layout are all reused — only the numeric payload is
+        re-derived (transform replay, schedule value repack and, on the
+        card, a device refresh of the SpTRSV kernel's packed tiles).  No
+        SpTRSV kernel runs until the next solve.  A value set whose float32
+        zeros differ from the frozen packing's re-packs on the host and
+        counts in `stats.repacks`.
+
+        Mutates the operator in place and returns self.  A matrix whose
+        pattern differs from the frozen one raises PatternMismatchError
+        (rebuild with from_csr instead); non-finite values raise
+        NumericalHealthError under any health policy that checks inputs
+        (`health=` accepts the same specs as solve()).
+        """
+        from ..core.resilience import (NumericalHealthError,
+                                       PatternMismatchError,
+                                       resolve_health_policy)
+        from ..sparse.csr import same_pattern
+        where = f"TriangularOperator.update_values(n={self.n})"
+        if not same_pattern(new_L, self._L):
+            if new_L.shape != self._L.shape:
+                detail = f"shape {new_L.shape} != {self._L.shape}"
+            elif new_L.nnz != self._L.nnz:
+                detail = f"nnz {new_L.nnz} != {self._L.nnz}"
+            elif not np.array_equal(new_L.indptr, self._L.indptr):
+                detail = "row pointer drift"
+            else:
+                detail = "column index drift"
+            raise PatternMismatchError(
+                "matrix pattern differs from the frozen operator pattern; "
+                "rebuild with from_csr", where=where, detail=detail)
+        policy = resolve_health_policy(health)
+        if policy.check_inputs and not np.all(np.isfinite(new_L.data)):
+            raise NumericalHealthError(
+                f"new matrix values contain non-finite entries in {where}",
+                stage="input", where=where)
+        t0 = time.perf_counter()
+        cache = bool(self._build_kwargs.get("cache", False))
+        cache_dir = self._build_kwargs.get("cache_dir")
+        key = (f"{self._pattern_cache_key(new_L, self._config)}-"
+               f"{value_fingerprint(new_L)}")
+        payload, source, repacks = None, "pattern", 0
+        if cache:
+            payload = self._memory_get(key)
+            if payload is not None:
+                source = "memory"
+            else:
+                payload = self._disk_load(key, cache_dir)
+                if payload is not None:
+                    source = "disk"
+                    self._memory_put(key, payload)
+        if payload is None:
+            payload, repacks = self._derive_payload(self._payload, new_L)
+            if cache:
+                self._memory_put(key, payload)
+                self._disk_store(key, payload, cache_dir)
+        self._L = new_L
+        self._payload = payload
+        self._ts = payload["ts"]
+        self._sched = payload["sched"]
+        self._reversed = bool(payload["reversed"])
+        self._runtime = payload.setdefault("_runtime", {}).setdefault(
+            str(self.device), {"compiled": {}, "pre_compiled": {}})
+        self.stats.record_value_update(
+            ms=(time.perf_counter() - t0) * 1e3, cache_source=source,
+            repacks=repacks)
+        return self
+
+    # -- cache plumbing -------------------------------------------------------
+    @classmethod
+    def _pattern_cache_key(cls, L: CSR, cfg: dict) -> str:
+        """Pattern+config segment of the cache key (values excluded)."""
+        return (matrix_fingerprint(L, include_values=False) + "-" +
+                hashlib.sha256(
+                    repr(sorted(cfg.items())).encode()).hexdigest()[:16])
+
+    @staticmethod
+    def _cache_path(key: str, cache_dir) -> Path:
+        d = Path(cache_dir) if cache_dir is not None else default_cache_dir()
+        return d / f"{CACHE_PREFIX}{key}.pkl"
+
+    @classmethod
+    def _disk_load(cls, key: str, cache_dir) -> dict | None:
+        return cls._disk_load_path(cls._cache_path(key, cache_dir))
+
+    @classmethod
+    def _disk_load_pattern(cls, pattern_key: str, cache_dir) -> dict | None:
+        """Any healthy on-disk payload whose pattern+config segment matches
+        (its values don't matter — the caller re-derives them).  The glob
+        carries the port's prefix, so it never matches a reference entry."""
+        d = Path(cache_dir) if cache_dir is not None else default_cache_dir()
+        if not d.exists():
+            return None
+        for path in sorted(d.glob(f"{CACHE_PREFIX}{pattern_key}-*.pkl")):
+            payload = cls._disk_load_path(path)
+            if payload is not None:
+                return payload
+        return None
+
+    @classmethod
+    def _disk_load_path(cls, path: Path) -> dict | None:
+        if not path.exists():
+            return None
+        try:
+            with open(path, "rb") as f:
+                payload = pickle.load(f)
+            if payload.get("version") != CACHE_VERSION:
+                cls._quarantine(
+                    path, f"stale version {payload.get('version')!r} "
+                    f"(expected {CACHE_VERSION!r})")
+                return None
+            return payload
+        except Exception as e:          # corrupt entry: quarantine + rebuild
+            cls._quarantine(path, f"unreadable ({type(e).__name__}: {e})")
+            return None
+
+    @staticmethod
+    def _quarantine(path: Path, reason: str) -> None:
+        """Move a bad cache entry into a `.bad/` sibling directory — kept
+        for diagnosis, never silently deleted — and warn; the caller then
+        rebuilds the artifact.  A quarantine that itself fails (read-only
+        dir, racing quarantiners) is non-fatal: the rebuild proceeds and
+        the next atomic store overwrites the bad entry in place."""
+        from ..core.resilience import CacheQuarantineWarning
+        dest = path.parent / ".bad" / path.name
+        try:
+            dest.parent.mkdir(parents=True, exist_ok=True)
+            os.replace(path, dest)
+            placed = f"quarantined to {dest}"
+        except OSError:
+            placed = "left in place (quarantine move failed)"
+        warnings.warn(
+            f"disk cache entry {path.name} is {reason}; {placed}, "
+            "rebuilding the artifact", CacheQuarantineWarning, stacklevel=4)
+
+    @classmethod
+    def _disk_store(cls, key: str, payload: dict, cache_dir) -> None:
+        from ..kernels.sptrsv_level import PackedSchedule
+        path = cls._cache_path(key, cache_dir)
+        # "_"-prefixed keys are process-local runtime state (staged
+        # schedules, compiled fns) — never serialized; packed schedules
+        # are written as host arrays wherever they lie
+        payload = {k: (v.to("cpu") if isinstance(v, PackedSchedule) else v)
+                   for k, v in payload.items() if not k.startswith("_")}
+        try:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            # unique tmp name per writer: concurrent builders of the same
+            # key each publish a complete file via atomic os.replace, so a
+            # reader can never observe a torn pickle (last writer wins)
+            tmp = path.parent / (
+                f"{path.name}.{os.getpid()}-{uuid.uuid4().hex[:8]}.tmp")
+            try:
+                with open(tmp, "wb") as f:
+                    pickle.dump(payload, f)
+                os.replace(tmp, path)
+            except BaseException:
+                tmp.unlink(missing_ok=True)
+                raise
+        except OSError:
+            pass        # read-only cache dir: operator still works, unseeded
+
     # -- solving --------------------------------------------------------------
     @property
     def n(self) -> int:
@@ -391,11 +749,28 @@ class TriangularOperator:
     def schedule(self):
         return self._sched
 
+    @property
+    def transformed(self):
+        return self._ts
+
+    def _packed(self, which: str):
+        """The payload's packed form of the main schedule ("packed") or of
+        the preamble's ("preamble_packed") on this operator's device:
+        packed on the host once, moved here once (`_payload_packed`)."""
+        packed = _payload_packed(self._payload, which).to(self.device)
+        self._payload[which] = packed
+        return packed
+
     def _staged(self):
         ds = self._runtime.get("dsched")
         if ds is None:
             from .levelset import to_device
-            ds = self._runtime["dsched"] = to_device(self._sched, self.device)
+            # on a card the CUDA kernel reads the packed form the payload
+            # keeps (built, loaded from disk or refreshed with new values)
+            packed = self._packed("packed") if self.device.type == "cuda" \
+                else None
+            ds = self._runtime["dsched"] = to_device(self._sched, self.device,
+                                                     packed)
         return ds
 
     def _compiled_fn(self, engine):
@@ -420,14 +795,7 @@ class TriangularOperator:
     def _preamble_host(self):
         """(LevelSchedule|None, src, row_pos) for the T-factor preamble,
         compiled once on the shared payload (None = identity preamble)."""
-        entry = self._payload.get("_preamble_host")
-        if entry is None:
-            from .schedule import schedule_for_preamble
-            entry = self._payload["_preamble_host"] = schedule_for_preamble(
-                self._ts, chunk=self._config["chunk"],
-                max_deps=self._config["max_deps"],
-                dtype=np.dtype(self._config["dtype"]))
-        return entry
+        return _payload_preamble(self._payload)
 
     def _preamble_staged(self):
         """_preamble_host staged on this operator's device, once: (staged
@@ -439,7 +807,9 @@ class TriangularOperator:
             if psched is None:
                 entry = (None, None, None)
             else:
-                entry = (to_device(psched, self.device),
+                packed = self._packed("preamble_packed") \
+                    if self.device.type == "cuda" else None
+                entry = (to_device(psched, self.device, packed),
                          torch.as_tensor(src, device=self.device),
                          torch.as_tensor(row_pos, device=self.device))
             self._runtime["preamble"] = entry

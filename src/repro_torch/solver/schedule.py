@@ -69,7 +69,8 @@ from ..sparse.levels import LevelSets
 
 __all__ = ["WidthGroup", "LevelSchedule", "SchedValuePlan", "build_schedule",
            "schedule_for_csr", "schedule_for_transformed",
-           "schedule_for_preamble", "DEFAULT_WIDTHS"]
+           "schedule_for_preamble", "repack_schedule_values",
+           "DEFAULT_WIDTHS"]
 
 DEFAULT_WIDTHS = (4, 8, 16, 32)
 
@@ -691,6 +692,63 @@ def build_schedule(A: CSR, diag: np.ndarray, level_of: np.ndarray,
                          max_deps=max_deps,
                          compacted=compact and not legacy_shape,
                          build_ms=build_ms, value_plan=plan)
+
+
+def repack_schedule_values(sched: LevelSchedule, new_data: np.ndarray,
+                           new_diag: np.ndarray) -> LevelSchedule:
+    """Refill a schedule's numeric payload for new values on the frozen
+    pattern — the value-update fast path.
+
+    Only `dep_coef` and `dinv` change; `row_ids`/`dep_idx`/carry arrays (the
+    pattern-derived structure) are shared with the input schedule, so no
+    lane construction, step assignment, or width bucketing runs.  Fresh
+    buffers are allocated (never mutated in place): compiled engine
+    functions and staged device arrays may still reference the old ones.
+
+    `new_data` must be in the same entry order as the matrix the schedule
+    was built from (`sched.value_plan.nnz` entries); the result is bitwise
+    identical to `build_schedule` on the new values.
+    """
+    plan = sched.value_plan
+    if plan is None:
+        raise ValueError(
+            "schedule carries no SchedValuePlan — it was not produced by "
+            "build_schedule; rebuild instead of repacking")
+    vals = np.asarray(new_data)
+    if vals.shape != (plan.nnz,):
+        raise ValueError(
+            f"repack_schedule_values: expected {plan.nnz} values for the "
+            f"frozen pattern, got shape {vals.shape}")
+    t0 = time.perf_counter()
+    dtype = sched.dtype
+    n = sched.n
+    # buffer geometry reconstructed from the materialized group shapes
+    lsizes = [g.row_ids.size for g in sched.groups]
+    dsizes = [g.dep_idx.size for g in sched.groups]
+    dinv_of = np.zeros(n + 1, dtype=dtype)
+    if n:
+        dinv_of[:n] = 1.0 / np.asarray(new_diag, dtype=dtype)
+    ent_vals = vals if plan.ent_src is None else vals[plan.ent_src]
+    if ent_vals.dtype != dtype:
+        ent_vals = ent_vals.astype(dtype)
+    dep_coef_buf = np.zeros(sum(dsizes), dtype=dtype)
+    dep_coef_buf[plan.coef_dst] = ent_vals
+    dinv_buf = np.zeros(sum(lsizes), dtype=dtype)
+    if plan.lane_final.all():
+        dinv_buf[plan.lane_slot] = dinv_of[plan.lane_row]
+    else:
+        dinv_buf[plan.lane_slot] = np.where(plan.lane_final,
+                                            dinv_of[plan.lane_row], 0)
+    groups = []
+    lo = do = 0
+    for g, ls, ds in zip(sched.groups, lsizes, dsizes):
+        groups.append(dataclasses.replace(
+            g, dep_coef=dep_coef_buf[do:do + ds].reshape(g.dep_coef.shape),
+            dinv=dinv_buf[lo:lo + ls].reshape(g.dinv.shape)))
+        lo += ls
+        do += ds
+    build_ms = (time.perf_counter() - t0) * 1e3
+    return dataclasses.replace(sched, groups=tuple(groups), build_ms=build_ms)
 
 
 def schedule_for_csr(L: CSR, levels: LevelSets, chunk: int = 256,

@@ -34,7 +34,9 @@ REFINED_RTOL = 1e-10
 
 
 @pytest.fixture(autouse=True)
-def _fresh_caches():
+def _fresh_caches(tmp_path, monkeypatch):
+    # the operator's disk tier writes under the test's own directory
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path / "cache"))
     for cls in (TriangularOperator, RefOperator):
         cls.clear_memory_cache()
     for cls in (Preconditioner, RefPreconditioner):

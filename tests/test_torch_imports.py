@@ -70,7 +70,8 @@ print(len(names))
     assert int(proc.stdout.split()[-1]) >= 16
     imported = set(proc.stdout.split()[:-1])
     for name in ("repro_torch.core.portfolio", "repro_torch.obs",
-                 "repro_torch.obs.profile", "repro_torch.obs.calibrate"):
+                 "repro_torch.obs.profile", "repro_torch.obs.calibrate",
+                 "repro_torch.solver.api"):
         assert name in imported, name
 
 

@@ -38,7 +38,9 @@ F32_RTOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
-def _fresh_memory_cache():
+def _fresh_memory_cache(tmp_path, monkeypatch):
+    # the operator's disk tier writes under the test's own directory
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path / "cache"))
     TriangularOperator.clear_memory_cache()
     RefOperator.clear_memory_cache()
     yield

@@ -173,7 +173,9 @@ def test_factors_from_numpy_copies_the_arrays():
 # -- the Preconditioner facade ------------------------------------------------
 
 @pytest.fixture(autouse=True)
-def _fresh_memory_cache():
+def _fresh_memory_cache(tmp_path, monkeypatch):
+    # the operator's disk tier writes under the test's own directory
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path / "cache"))
     TriangularOperator.clear_memory_cache()
     RefOperator.clear_memory_cache()
     yield
@@ -261,12 +263,15 @@ def test_not_ported_options_raise():
     # tune="auto", the default, is ported: the pair tuner decides
     assert Preconditioner.ic0(A, device="cpu").report is not None
     assert Preconditioner.from_factors(fac, device="cpu").report is not None
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="sharded solves"):
         Preconditioner.from_factors(fac, tune="no_rewriting", mesh=object(),
                                     device="cpu")
+    # refactor is ported (tests/test_torch_refactor.py holds it against
+    # the reference): it re-binds both sweeps and returns the preconditioner
     P = Preconditioner.from_factors(fac, tune="no_rewriting", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        P.refactor(A)
+    assert P.refactor(A) is P
+    assert P.forward.stats.value_updates == P.backward.stats.value_updates \
+        == 1
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

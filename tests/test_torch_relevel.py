@@ -22,19 +22,32 @@ long rows):
 * a row longer than a tile can hold (an arrow matrix's last rows) keeps
   its pairs outside the tiles and solves all the same.
 
-The CUDA kernel itself runs only on a card (`cuda` marker).
+The value refresh (`refresh_packed_values`, for a value update on a
+frozen pattern) is held bitwise equal to a fresh `pack_schedule` of the
+new schedule, through the plain refresh and `emulate_packed`; a
+coefficient that goes 0 -> non-zero or non-zero -> 0 re-packs (the
+packing drops zeros and re-levels without them, so a refresh alone would
+solve a row before its dependency).
+
+The CUDA kernel itself, and the device refresh, run only on a card
+(`cuda` marker).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.portfolio import make_strategy
-from repro_torch.core.transform import transform
+from repro_torch.core.transform import replay_transform, transform
 from repro_torch.kernels import ref, sptrsv_level as K
 from repro_torch.precond import factorize
+from repro_torch.solver import TriangularOperator
 from repro_torch.solver.levelset import pad_rhs, to_device
-from repro_torch.solver.operator import orient_lower
-from repro_torch.solver.schedule import (build_schedule, schedule_for_csr,
+from repro_torch.solver.operator import _payload_packed, orient_lower
+from repro_torch.solver.schedule import (build_schedule,
+                                         repack_schedule_values,
+                                         schedule_for_csr,
                                          schedule_for_preamble,
                                          schedule_for_transformed)
 from repro_torch.sparse import generators
@@ -46,6 +59,7 @@ from _optional_deps import given, settings, st
 torch.set_num_threads(1)
 
 RTOL = ATOL = 1e-6
+EMULATE_RTOL = 1e-5         # float32 sweep against the float64 oracle
 ARROW_K = 20000             # the arrow's independent rows: its row K reads
                             # all of them, more than a ring stage can hold
 
@@ -508,3 +522,202 @@ def test_consumer_threads_are_whole_warps_within_a_block(name):
         assert packed.consumers[R] == threads
     wide = K.pack_schedule(_case("torso2_like(0.04)")[0])
     assert K.consumer_threads(wide, 8) >= K.consumer_threads(wide, 1)
+
+
+# -- the value refresh of a packed schedule, and the zero trap ----------------
+
+def _revalued(M, seed=1, diag_scale=1.6):
+    """Same pattern, perturbed values, scaled diagonal."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(M.n_rows), M.row_nnz())
+    d_mask = M.indices == rows
+    data = M.data * (1.0 + 0.25 * rng.standard_normal(M.nnz))
+    data[d_mask] = M.data[d_mask] * diag_scale
+    return M.with_data(data)
+
+
+def _rel(x, x_ref):
+    return np.abs(x - x_ref).max() / max(1.0, np.abs(x_ref).max())
+
+
+def _refresh_case(name):
+    """(schedule, the same schedule with new values on its layout) for a
+    refresh: lung2's and torso2's transformed systems (carry chains at
+    max_deps=4), the T-factor preamble, and an arrow whose long row keeps
+    its pairs in `far`."""
+    if name == "arrow":
+        M = _arrow(ARROW_K)
+        sched = schedule_for_csr(M, build_levels(M), chunk=256, max_deps=16)
+        M2 = _revalued(M, seed=2)
+        A2 = tril(M2, keep_diagonal=False)
+        return sched, repack_schedule_values(sched, A2.data,
+                                             M2.diagonal_fast())
+    mat, strat = name.split("/")[:2]
+    L = getattr(generators, mat.split("(")[0])(0.05)
+    ts = transform(L, make_strategy(strat), validate=False)
+    r = replay_transform(_revalued(L, seed=6), ts)
+    if name.endswith("/preamble"):
+        psched, _, _ = schedule_for_preamble(ts, chunk=32, max_deps=4)
+        return psched, repack_schedule_values(psched, r.T.data,
+                                              np.ones(r.T.n_rows))
+    sched = schedule_for_transformed(ts, chunk=32, max_deps=4)
+    return sched, repack_schedule_values(sched, r.A.data, r.diag)
+
+
+REFRESH_CASES = ["lung2_like(0.05)/no_rewriting",
+                 "lung2_like(0.05)/avgLevelCost",
+                 "lung2_like(0.05)/avgLevelCost/preamble",
+                 "torso2_like(0.05)/avgLevelCost", "arrow"]
+PACKED_ARRAYS = ("tiles", "tile_ptr", "far", "free_row", "free_dinv")
+
+
+def _assert_packed_equal(a, b):
+    for name in PACKED_ARRAYS:
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()), \
+            name
+    assert a.num_steps == b.num_steps
+
+
+@pytest.mark.parametrize("name", REFRESH_CASES)
+def test_refresh_equals_a_fresh_pack(name):
+    sched, new = _refresh_case(name)
+    packed = K.pack_schedule(sched)
+    tiles_before = packed.tiles.clone()
+    before = dict(K.PACKS)
+    got, repacked = K.refresh_packed_values(packed, new)
+    assert not repacked
+    assert K.PACKS["pack_groups"] == before["pack_groups"]
+    assert K.PACKS["refreshes"] == before["refreshes"] + 1
+    assert torch.equal(packed.tiles, tiles_before)     # never in place
+    assert got.tile_ptr is packed.tile_ptr and got.values is packed.values
+    _assert_packed_equal(got, K.pack_schedule(new))
+    if name == "arrow":
+        assert got.far.numel() > 0
+    c = pad_rhs(torch.as_tensor(np.random.default_rng(1).standard_normal(
+        new.n), dtype=torch.float32))
+    x = K.emulate_packed(got, c)
+    xp = ref.sptrsv_levels_grouped_ref(to_device(new, "cpu").groups, c,
+                                       new.n, new.n_carry)
+    np.testing.assert_allclose(x.numpy(), xp.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_refresh_rejects_another_layout():
+    sched, _ = _refresh_case("lung2_like(0.05)/no_rewriting")
+    other, _ = _refresh_case("lung2_like(0.05)/avgLevelCost")
+    with pytest.raises(ValueError, match="value slots"):
+        K.refresh_packed_values(K.pack_schedule(sched), other)
+
+
+def _zero_trap(zero_first: bool):
+    """lung2_like(0.05) L under no_rewriting with one dependency's
+    coefficient 0 before the update (zero_first) or after it: (L_before,
+    L_after, schedule before, schedule after, the entry)."""
+    L = generators.lung2_like(0.05)
+    rows = np.repeat(np.arange(L.n_rows), L.row_nnz())
+    off = np.flatnonzero(rows != L.indices)
+    k = int(off[off.size // 2])
+    zeroed = L.data.copy()
+    zeroed[k] = 0.0
+    L0, L1 = (L.with_data(zeroed), L) if zero_first else \
+        (L, L.with_data(zeroed))
+    ts = transform(L0, make_strategy("no_rewriting"), validate=False)
+    r = replay_transform(L1, ts)
+    sched = schedule_for_transformed(ts, chunk=32, max_deps=4)
+    return L0, L1, sched, repack_schedule_values(sched, r.A.data, r.diag), k
+
+
+def _oracle(L, b):
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve_triangular
+    M = sp.csr_matrix((L.data, L.indices, L.indptr), shape=L.shape)
+    return spsolve_triangular(M, b, lower=True)
+
+
+@pytest.mark.parametrize("zero_first", [True, False],
+                         ids=["zero_to_nonzero", "nonzero_to_zero"])
+def test_zero_set_change_repacks(zero_first):
+    L0, L1, sched, new, _ = _zero_trap(zero_first)
+    packed = K.pack_schedule(sched)
+    before = dict(K.PACKS)
+    got, repacked = K.refresh_packed_values(packed, new)
+    assert repacked
+    assert K.PACKS["repacks"] == before["repacks"] + 1
+    assert K.PACKS["pack_groups"] == before["pack_groups"] + 1
+    _assert_packed_equal(got, K.pack_schedule(new))
+    b = np.random.default_rng(3).standard_normal(L1.n_rows)
+    x_ref = _oracle(L1, b)
+    x = K.emulate_packed(got, pad_rhs(torch.as_tensor(b,
+                                                      dtype=torch.float32)))
+    assert _rel(x.numpy(), x_ref) < EMULATE_RTOL
+    if zero_first:
+        # the trap: the new values scattered into the old packing (the
+        # dependency that was 0 is not in it) give a finite, wrong answer
+        vm = packed.values
+        v = torch.from_numpy(K.schedule_values(new).astype(np.float32))
+        tiles = packed.tiles.clone()
+        tiles.view(torch.float32)[torch.from_numpy(vm.tile_word)] = \
+            v[torch.from_numpy(vm.tile_src)]
+        stale = dataclasses.replace(packed, tiles=tiles,
+                                    free_dinv=v[torch.from_numpy(
+                                        vm.free_src)])
+        x_stale = K.emulate_packed(stale, pad_rhs(torch.as_tensor(
+            b, dtype=torch.float32)))
+        assert torch.isfinite(x_stale).all()
+        assert _rel(x_stale.numpy(), x_ref) > 100 * EMULATE_RTOL
+
+
+@pytest.mark.parametrize("zero_first", [True, False],
+                         ids=["zero_to_nonzero", "nonzero_to_zero"])
+def test_update_values_repacks_when_the_zero_set_moves(zero_first):
+    """The operator's path: a payload that holds the packed schedules (as
+    one built on a card does) refreshes them on update_values, and counts
+    a re-pack when the zero set moved."""
+    L0, L1, _, _, _ = _zero_trap(zero_first)
+    op = TriangularOperator.from_csr(L0, "no_rewriting", device="cpu",
+                                     cache=False)
+    base = _payload_packed(op._payload, "packed")
+    op.update_values(L1)
+    assert op.stats.repacks == 1
+    assert op._payload["packed"] is not base
+    _assert_packed_equal(op._payload["packed"], K.pack_schedule(op.schedule))
+    b = np.random.default_rng(4).standard_normal(L1.n_rows)
+    assert _rel(op.solve(b), _oracle(L1, b)) < 1e-8
+    op.update_values(_revalued(L1, seed=8, diag_scale=1.0))
+    assert op.stats.repacks == 1 and op.stats.value_updates == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REFRESH_CASES)
+def test_cuda_device_refresh_equals_a_fresh_pack(cuda_device, name):
+    sched, new = _refresh_case(name)
+    packed = K.pack_schedule(sched).to(cuda_device)
+    got, repacked = K.refresh_packed_values(packed, new)
+    assert not repacked and got.tiles.device.type == "cuda"
+    _assert_packed_equal(got, K.pack_schedule(new))
+    c = pad_rhs(torch.as_tensor(np.random.default_rng(1).standard_normal(
+        new.n), dtype=torch.float32, device=cuda_device)).contiguous()
+    x = K.sptrsv_groups(None, c, n=new.n, n_carry=new.n_carry, packed=got)
+    xp = K.emulate_packed(got, c)
+    torch.cuda.synchronize()
+    assert _rel(x.cpu().numpy(), xp.cpu().numpy()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_first", [True, False],
+                         ids=["zero_to_nonzero", "nonzero_to_zero"])
+def test_cuda_update_values_through_the_zero_trap(cuda_device, zero_first):
+    L0, L1, _, _, _ = _zero_trap(zero_first)
+    op = TriangularOperator.from_csr(L0, "no_rewriting", device="cuda",
+                                     cache=False)
+    before = dict(K.PACKS)
+    op.update_values(L1)
+    assert op.stats.repacks == 1
+    assert K.PACKS["repacks"] == before["repacks"] + 1
+    b = np.random.default_rng(4).standard_normal(L1.n_rows)
+    x_ref = _oracle(L1, b)
+    assert _rel(op.solve(b, max_refine=0), x_ref) < 5e-4
+    assert _rel(op.solve(b), x_ref) < 1e-8
+    before = dict(K.PACKS)
+    op.update_values(_revalued(L1, seed=8, diag_scale=1.0))
+    assert K.PACKS["pack_groups"] == before["pack_groups"]
+    assert op.stats.repacks == 1
