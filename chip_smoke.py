@@ -95,11 +95,33 @@ non-zero:
    against the flipped solve within 1e-6, and a second-order gradient
    through `create_graph=True`; forward and backward ms, K1 launches a
    call.  K1 and K2 must be launched, the plain version never.
-8. The kernels line and the contract line.
+8. The solve service at full size.  One `OperatorRegistry`
+   (`tune_mode="background"`, `cache=False`; the background tune runs
+   the default candidates less critical_path's two) behind
+   `SolveService(max_width=8, max_linger_s=0.002, workers=2)` serves the
+   server's pattern pool at scale 1.0 (lung2_like, torso2_like and one
+   random_lower of n 600) with `serving.server.run_workload`'s traffic: 3
+   tenants, 240 requests, request i on pattern i % 3 and value step
+   (i // 7) % 3, every answer within 5e-4 of the float64 oracle.  A
+   stretch while the entries warm (at least one must still be warming
+   after it, and some requests must be served untuned), then every tune
+   done, then the same traffic on the tuned operators; zero drops, at
+   least one hot swap and one value re-bind through `update_values`.
+   Queue and solve ms (p50, p99) of each stretch.  Then 240 hot requests
+   (a right-hand side each) in bursts through a batched service and a
+   width-1 one over the same registry, in turns: the answers must agree
+   within 1e-5, requests/s and the ratio are printed.  A burst under
+   `obs.enable(annotate_torch=True)` and `torch.profiler`: the Chrome
+   trace and the Prometheus page must validate, and the SpTRSV kernels'
+   device time over `serving.solve`'s wall time is printed.  K1 and K2
+   against their plain version on every served operator; `python -m
+   repro_torch.serving.server --smoke` in a new process must exit 0.  K1
+   and K2 must be launched, the plain version never.
+9. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
-With `--sweep` or `--ab`, phases 3-7 give way to studies of the SpTRSV kernel on lung2's
+With `--sweep` or `--ab`, phases 3-8 give way to studies of the SpTRSV kernel on lung2's
 and torso2's L and IC(0) L^T (R = 1, 8), written to
 chiprun_out/chip_smoke_study.json: `--sweep` times it at every consumer
 count and fits `ROUND_WARPS`, the ratio from which the wrapper sizes the
@@ -1554,6 +1576,354 @@ def phase_lifecycle(rng, cache_dir: str, tuned: dict) -> tuple:
     return res, counts
 
 
+# -- phase 8: the solve service --------------------------------------------
+
+SERVE_REQUESTS, SERVE_TENANTS, SERVE_STEPS = 240, 3, 3
+SERVE_WIDTH, SERVE_LINGER_S, SERVE_WORKERS = 8, 0.002, 2
+# the traced stretch: a burst of hot requests under torch.profiler
+TRACE_REQUESTS = 48
+
+
+def percentiles(samples: list) -> dict:
+    from repro_torch.obs.metrics import nearest_rank_percentile
+    return {"p50": nearest_rank_percentile(samples, 50),
+            "p99": nearest_rank_percentile(samples, 99),
+            "n": len(samples)}
+
+
+def serve_stretch(svc, mats, seed: int) -> dict:
+    """run_workload (the server's traffic: request i on pattern i % 3,
+    value step (i // 7) % 3, tenant i % 3), every answer held against the
+    float64 oracle at ORACLE_RTOL; the queue and solve ms of this stretch
+    alone."""
+    from repro_torch.serving.server import run_workload
+    q0, s0 = len(svc.stats.queue_ms), len(svc.stats.solve_ms)
+    t0 = time.perf_counter()
+    out = run_workload(svc, mats, requests=SERVE_REQUESTS,
+                       tenants=SERVE_TENANTS, value_steps=SERVE_STEPS,
+                       seed=seed, rel_tol=ORACLE_RTOL)
+    secs = time.perf_counter() - t0
+    check(not out["errors"] and out["checked"] == SERVE_REQUESTS,
+          f"served {out['checked']} of {SERVE_REQUESTS} right: "
+          f"{out['errors'][:3]}")
+    return {"seconds": secs, "checked": out["checked"],
+            "queue_ms": percentiles(svc.stats.queue_ms[q0:]),
+            "solve_ms": percentiles(svc.stats.solve_ms[s0:])}
+
+
+def burst(svc, reqs: list) -> tuple:
+    """Submit every (matrix, b) of `reqs` at once from SERVE_TENANTS
+    threads, then wait for all: (answers, seconds, queue and solve ms,
+    mean batch width of this burst)."""
+    from concurrent.futures import ThreadPoolExecutor
+    q0, s0 = len(svc.stats.queue_ms), len(svc.stats.solve_ms)
+    w0 = dict(svc.stats.width_hist)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_TENANTS) as pool:
+        futs = list(pool.map(
+            lambda ib: svc.submit(ib[1][1], ib[1][0],
+                                  tenant=f"tenant-{ib[0] % SERVE_TENANTS}"),
+            enumerate(reqs)))
+    xs = [f.result(timeout=300) for f in futs]
+    secs = time.perf_counter() - t0
+    widths = {w: c - w0.get(w, 0) for w, c in svc.stats.width_hist.items()}
+    batches = sum(widths.values())
+    return xs, {"seconds": secs, "requests_per_s": len(reqs) / secs,
+                "batches": batches,
+                "mean_width": sum(w * c for w, c in widths.items())
+                / max(batches, 1),
+                "queue_ms": percentiles(svc.stats.queue_ms[q0:]),
+                "solve_ms": percentiles(svc.stats.solve_ms[s0:])}
+
+
+def admit_hash_ms(M) -> float:
+    """Host ms of what every `submit` of M pays before it queues: the
+    registry's pattern and value fingerprints (median of 5)."""
+    from repro_torch.solver.operator import (matrix_fingerprint,
+                                             value_fingerprint)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        matrix_fingerprint(M, include_values=False)
+        value_fingerprint(M)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def serve_compare(registry, reqs: list) -> dict:
+    """The same hot requests through a batched service and a width-1 one
+    over the same warm registry, in turns (batched, width 1, width 1,
+    batched): the batched answers must equal the width-1 ones (K2 against
+    K1) within KERNEL_RTOL; requests/s is printed, not gated."""
+    from repro_torch.serving import SolveService
+    runs = {"batched": [], "width1": []}
+    answers = {}
+    for label in ("batched", "width1", "width1", "batched"):
+        width = SERVE_WIDTH if label == "batched" else 1
+        with SolveService(max_width=width, max_linger_s=SERVE_LINGER_S,
+                          workers=SERVE_WORKERS, tenant_cap=len(reqs),
+                          registry=registry) as svc:
+            xs, row = burst(svc, reqs)
+        runs[label].append(row)
+        answers[label] = xs
+    err = max(float(np.abs(a.astype(np.float64) - b).max())
+              / max(1.0, float(np.abs(b).max()))
+              for a, b in zip(answers["batched"], answers["width1"]))
+    check(err <= KERNEL_RTOL, f"batched answers differ from width-1 ones "
+          f"by {err:.3e} (relative to scale)")
+    rate = {k: float(np.median([r["requests_per_s"] for r in v]))
+            for k, v in runs.items()}
+    return {"runs": runs, "max_rel_diff": err,
+            "requests_per_s": rate,
+            "speedup": rate["batched"] / rate["width1"]}
+
+
+def serve_traced(registry, reqs: list) -> dict:
+    """A burst with obs.enable(annotate_torch=True) under torch.profiler:
+    the tracer's Chrome trace and the service's Prometheus page must
+    validate, and the SpTRSV kernels' device time over serving.solve's
+    wall time is the device's busy share of a served batch."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.obs.export import (chrome_trace, validate_chrome_trace,
+                                        validate_prometheus_text)
+    from repro_torch.serving import SolveService
+    tracer = obs.enable(annotate_torch=True)
+    try:
+        with SolveService(max_width=SERVE_WIDTH,
+                          max_linger_s=SERVE_LINGER_S,
+                          workers=SERVE_WORKERS, tenant_cap=len(reqs),
+                          registry=registry) as svc:
+            # record the CPU ops (and so the spans' annotations) of every
+            # thread: the service solves on its worker threads
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         experimental_config=_ExperimentalConfig(
+                             profile_all_threads=True)) as prof:
+                burst(svc, reqs)
+                torch.cuda.synchronize()
+            page = svc.prometheus_text()
+    finally:
+        obs.disable()
+    doc = chrome_trace(tracer)
+    problems = validate_chrome_trace(doc) + validate_prometheus_text(page)
+    check(not problems, f"trace/metrics export: {problems[:5]}")
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    names = {e["name"] for e in spans}
+    for need in ("serving.submit", "serving.queue", "serving.batch",
+                 "serving.solve", "operator.solve"):
+        check(need in names, f"no {need} span in the served trace")
+    solve_ms = sum(e["dur"] for e in spans
+                   if e["name"] == "serving.solve") / 1e3
+    kern_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if "sptrsv_" in e.key) / 1e3
+    check(any(e.key == "serving.solve" for e in prof.key_averages()),
+          "no serving.solve annotation in the torch.profiler trace")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "phase8.trace.json").write_text(json.dumps(doc))
+    (out / "phase8.prom").write_text(page)
+    return {"spans": len(spans), "serving_solve_ms": solve_ms,
+            "kernel_ms": kern_ms,
+            "kernel_share": kern_ms / solve_ms if solve_ms else None,
+            "prometheus_lines": len(page.splitlines()),
+            # device time by kernel; the spans' own annotations, which
+            # the profiler also reports with device time, left out
+            "top_kernels": top_kernels(
+                {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
+                 for e in prof.key_averages() if e.key not in names
+                 and getattr(e, "self_device_time_total", 0.0) > 0})}
+
+
+def serve_cli() -> dict:
+    """`python -m repro_torch.serving.server --smoke` as a new process on
+    the card: exit code 0 and its report."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serving.server", "--smoke"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m repro_torch.serving.server "
+          f"--smoke exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+    rep = json.loads(proc.stdout)
+    st, regs = rep["stats"], rep["stats"]["registry"]
+    return {"seconds": secs, "device": rep["device"],
+            "checked": rep["checked"], "completed": st["completed"],
+            "mean_width": st["mean_width"],
+            "hot_swaps": regs["hot_swaps"],
+            "tuner_failures": regs["tuner_failures"],
+            "value_rebinds": regs["value_rebinds"],
+            "states": regs["states"], "entries": rep["entries"]}
+
+
+def serve_kernels(registry, rng) -> dict:
+    """K1 and K2 against their plain version on each served entry's live
+    operator, at the shapes the service gives them: one column, and a
+    batch padded to SERVE_WIDTH (launches not counted)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver.levelset import pad_rhs
+    worst = {"sptrsv_groups": 0.0, "sptrsv_groups_multi": 0.0}
+    for _, entry in registry.entries():
+        ds = entry.op._staged()
+        packed = ds.packed()
+        n, nc = packed.n, packed.n_carry
+        for name, shape in (("sptrsv_groups", (n,)),
+                            ("sptrsv_groups_multi", (n, SERVE_WIDTH))):
+            c_pad = pad_rhs(torch.as_tensor(
+                rng.standard_normal(shape), dtype=torch.float32,
+                device=DEVICE)).contiguous()
+            kern = getattr(K, name)
+            x = counted(lambda: kern(ds.groups, c_pad, n=n, n_carry=nc,
+                                     packed=packed))
+            xp = ref.sptrsv_levels_grouped_ref(ds.groups, c_pad, n, nc)
+            torch.cuda.synchronize()
+            diff, rel = rel_err(x, xp)
+            check(bool(torch.isfinite(x).all()) and rel <= KERNEL_RTOL,
+                  f"{name} on the served {entry.op.strategy} operator "
+                  f"(n={n}): relative error {rel:.3e}")
+            worst[name] = max(worst[name], diff)
+    return worst
+
+
+def log_serving(res: dict) -> None:
+    snap, regs = res["snapshot"], res["snapshot"]["registry"]
+    for label in ("warming", "hot"):
+        st = res[label]
+        log(f"  {label:8s} stretch: {st['checked']} answers within "
+            f"{ORACLE_RTOL:.0e} in {st['seconds']:.2f} s; queue ms p50 "
+            f"{st['queue_ms']['p50']:.3f} p99 {st['queue_ms']['p99']:.3f}, "
+            f"solve ms p50 {st['solve_ms']['p50']:.3f} p99 "
+            f"{st['solve_ms']['p99']:.3f}")
+    log(f"  states after the warming stretch "
+        f"{res['warming']['states_after']}; every tune done "
+        f"{res['warm_s']:.1f} s after the first request")
+    for k, e in res["entries"].items():
+        log(f"    entry {k}: {e['state']} {e['strategy']} tune_ms="
+            f"{e['tune_ms']:.0f} untuned_solves={e['untuned_solves']} "
+            f"value_rebinds={e['value_rebinds']} {e['tune_error'][:80]}")
+    log(f"  service: submitted {snap['submitted']} completed "
+        f"{snap['completed']} failed {snap['failed']}; batches "
+        f"{snap['batches']} mean width {snap['mean_width']:.3f} "
+        f"{snap['width_hist']}; hot swaps {regs['hot_swaps']}, value "
+        f"re-binds {regs['value_rebinds']}, tuner failures "
+        f"{regs['tuner_failures']}")
+    cmp_ = res["compare"]
+    for label, runs in cmp_["runs"].items():
+        log(f"  {label:8s} hot burst: " + "; ".join(
+            f"{r['requests_per_s']:.1f} req/s, mean width "
+            f"{r['mean_width']:.2f}, solve ms p50 {r['solve_ms']['p50']:.3f}"
+            f" p99 {r['solve_ms']['p99']:.3f}, queue ms p50 "
+            f"{r['queue_ms']['p50']:.3f} p99 {r['queue_ms']['p99']:.3f}"
+            for r in runs))
+    log(f"  batched / width 1: x{cmp_['speedup']:.2f} requests/s; answers "
+        f"within {cmp_['max_rel_diff']:.2e}; a submit's fingerprints take "
+        + ", ".join(f"{ms:.2f}" for ms in res["admit_hash_ms"])
+        + " ms of host per pattern")
+    tr = res["traced"]
+    log(f"  traced burst: {tr['spans']} spans, serving.solve "
+        f"{tr['serving_solve_ms']:.3f} ms, SpTRSV kernels "
+        f"{tr['kernel_ms']:.3f} ms (share {tr['kernel_share']:.3f}); "
+        f"serving.solve annotated in the profiler's trace; "
+        f"Prometheus page {tr['prometheus_lines']} lines; both valid")
+    log(f"  kernels against their plain version on the served operators: "
+        f"{res['kernels_vs_plain_max_abs_err']}")
+    cli = res["cli"]
+    log(f"  python -m repro_torch.serving.server --smoke: exit 0 in "
+        f"{cli['seconds']:.1f} s on {cli['device']}, {cli['checked']} "
+        f"checked, mean width {cli['mean_width']:.3f}, hot swaps "
+        f"{cli['hot_swaps']}, value re-binds {cli['value_rebinds']}, "
+        f"tuner failures {cli['tuner_failures']}, states {cli['states']}")
+    for k, e in cli["entries"].items():
+        log(f"    cli entry {k}: {e['state']} {e['strategy']} hot_swaps="
+            f"{e['hot_swaps']} value_rebinds={e['value_rebinds']} "
+            f"{e['tune_error'][:200]}")
+    log(f"  phase 8 took {res['seconds']:.1f} s")
+
+
+def phase_serving(rng) -> tuple:
+    """The solve service on the card at full size (module doc, phase 8).
+    Returns (result, launch counts of this path)."""
+    from repro_torch.core.portfolio import (StrategyPortfolio,
+                                            default_candidates)
+    from repro_torch.core.strategies import (CriticalPathRewrite,
+                                             strategy_label)
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.serving import OperatorRegistry, SolveService
+    from repro_torch.serving.server import build_matrices
+    from repro_torch.solver import TriangularOperator
+    mats = build_matrices(1.0, 3, SEED)
+    TriangularOperator.clear_memory_cache()
+    K.reset_launch_counts()
+    res = {"matrices": [{"n": L.n_rows, "nnz": L.nnz} for L in mats]}
+    # one registry behind every service of this phase (the mixed stretches,
+    # the width comparison, the traced burst), closed at its end.  Its
+    # background tune runs the default candidates less critical_path's
+    # two, whose host transforms of lung2 take most of two minutes
+    # (PERF.md §5)
+    pool = [c for c in default_candidates()
+            if not isinstance(c, CriticalPathRewrite)]
+    reg = OperatorRegistry(tune_mode="background", cache=False,
+                           device=DEVICE, portfolio=StrategyPortfolio(
+                               candidates=pool, device=DEVICE))
+    res["tuner_pool"] = [strategy_label(c) for c in pool]
+    try:
+        with SolveService(max_width=SERVE_WIDTH, max_linger_s=SERVE_LINGER_S,
+                          workers=SERVE_WORKERS, tenant_cap=256,
+                          registry=reg) as svc:
+            t0 = time.perf_counter()
+            res["warming"] = serve_stretch(svc, mats, SEED)
+            states = dict(reg.stats()["states"])
+            res["warming"]["states_after"] = states
+            check(states.get("warming", 0) >= 1,
+                  f"no entry was still warming after the first stretch: "
+                  f"{states}")
+            check(reg.wait_warm(timeout=900), "the background tunes did "
+                  "not finish within 900 s")
+            res["warm_s"] = time.perf_counter() - t0
+            res["hot"] = serve_stretch(svc, mats, SEED + 1)
+        snap = svc.snapshot()
+        dropped = snap["submitted"] - snap["completed"]
+        regs = snap["registry"]
+        check(dropped == 0 and snap["failed"] == 0 and
+              snap["rejected"] == 0, f"dropped {dropped}, failed "
+              f"{snap['failed']}, rejected {snap['rejected']}")
+        check(regs["hot_swaps"] >= 1, f"no hot swap: {regs}")
+        check(regs["value_rebinds"] >= 1, f"no value re-bind: {regs}")
+        entries = reg.stats()["entries"]
+        check(sum(e["untuned_solves"] for e in entries.values()) > 0,
+              "no request was served while its entry was warming")
+        res["snapshot"] = snap
+        res["entries"] = {
+            k: {f: v for f, v in e.items() if f != "op"} | {
+                "tune_ms": e["op"].get("tune_ms"),
+                "value_updates": e["op"].get("value_updates")}
+            for k, e in entries.items()}
+        # hot traffic: each entry's bound values, a right-hand side of its
+        # own per request
+        bound = [e._values[e.bound_fp] for _, e in reg.entries()]
+        reqs = [(bound[i % len(bound)],
+                 rng.standard_normal(bound[i % len(bound)].n_rows))
+                for i in range(SERVE_REQUESTS)]
+        res["admit_hash_ms"] = [admit_hash_ms(M) for M in bound]
+        res["compare"] = serve_compare(reg, reqs)
+        res["traced"] = serve_traced(reg, reqs[:TRACE_REQUESTS])
+        counts = dict(K.LAUNCHES)
+        res["kernels_vs_plain_max_abs_err"] = serve_kernels(reg, rng)
+    finally:
+        reg.close()
+    res["cli"] = serve_cli()
+    log(f"  launches on the serving path: {counts}")
+    check(counts["sptrsv_groups"] > 0 and counts["sptrsv_groups_multi"] > 0,
+          f"a kernel of the serving path was never launched: {counts}")
+    check(counts["plain"] == 0,
+          f"the plain version ran on the serving path: {counts}")
+    return res, counts
+
+
 def study_cases() -> list:
     """(label, schedule) of lung2's and torso2's L and IC(0) L^T at full
     scale: the forward and backward sweeps of the main paths."""
@@ -1684,9 +2054,10 @@ def phase_ab(dirs: list, rng) -> list:
     return rows
 
 
-def kernels_line(krows: list, *path_counts: dict) -> dict:
+def kernels_line(krows: list, *path_counts: dict,
+                 served_err: dict | None = None) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the main paths (phases 4 to 7)."""
+    launches summed over the main paths (phases 4 to 8)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -1712,8 +2083,9 @@ def kernels_line(krows: list, *path_counts: dict) -> dict:
         out.append({"name": name, "route": "cuda", "source": here + src,
                     "replaces": replaces,
                     "launches": sum(c.get(name, 0) for c in path_counts),
-                    "max_abs_err": max(r["max_abs_err"] for r in krows
-                                       if r["kernel"] == name),
+                    "max_abs_err": max([r["max_abs_err"] for r in krows
+                                        if r["kernel"] == name]
+                                       + [(served_err or {}).get(name, 0.0)]),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"],
                     "bound_by": rep["bound_by"],
@@ -1784,7 +2156,14 @@ def run(args, tuned_dir: str) -> int:
         rng, tuned_dir, tuner["operators"]["torso2_like"]["default"])
     life["seconds"] = time.perf_counter() - t7
     log(f"  phase 7 took {life['seconds']:.1f} s")
-    line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts)
+    log("== 8. the solve service at full size")
+    t8 = time.perf_counter()
+    serve, serve_counts = phase_serving(rng)
+    serve["seconds"] = time.perf_counter() - t8
+    log_serving(serve)
+    line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts,
+                        serve_counts,
+                        served_err=serve["kernels_vs_plain_max_abs_err"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -1792,7 +2171,8 @@ def run(args, tuned_dir: str) -> int:
          "main_path": mrows, "launches": counts, "krylov_path": prows,
          "krylov_launches": pcg_counts, "tuner": tuner,
          "tuner_launches": tune_counts, "life_cycle": life,
-         "life_cycle_launches": life_counts, "kernels_line": line,
+         "life_cycle_launches": life_counts, "serving": serve,
+         "serving_launches": serve_counts, "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(card["nvidia_smi"])

@@ -39,9 +39,12 @@ included; wall time around work that ends in a synchronize, minimum over
 reps) and re-ranks them.  A candidate whose transform or schedule compile
 raises on the host is reported as failed; a failure on the card raises.
 
-Not ported yet: the tracing span and metric counters around `tune`
-(ROADMAP.md, queue 1: observability) and the sharded engine the
-collective term prices (sharded solves).
+`tune` opens the reference's `portfolio.tune` span and counts
+`portfolio_tunes`, `portfolio_candidate_failures` and
+`portfolio_measure_notes` in `repro_torch.obs.default_registry()`.
+
+Not ported yet: the sharded engine the collective term prices (sharded
+solves).
 """
 from __future__ import annotations
 
@@ -50,6 +53,8 @@ import time
 
 import numpy as np
 
+from ..obs import trace as _obs
+from ..obs.metrics import default_registry as _default_registry
 from ..sparse.csr import CSR
 from .strategies import (AvgLevelCost, ConstrainedAvgLevelCost,
                          CriticalPathRewrite, ManualEveryK, NoRewrite,
@@ -465,6 +470,30 @@ class StrategyPortfolio:
                                             dtype=self.dtype)
 
     def tune(self, L: CSR) -> PortfolioReport:
+        with _obs.span("portfolio.tune", n=L.n_rows,
+                       candidates=len(self.candidates),
+                       measure_top_k=self.measure_top_k) as sp:
+            report = self._tune(L)
+            sp.set(best=report.best.label, tune_ms=report.tune_ms)
+        reg = _default_registry()
+        with reg.lock:
+            reg.counter("portfolio_tunes", "portfolio tuning runs").inc()
+            failures = reg.counter(
+                "portfolio_candidate_failures",
+                "candidates whose transform/compile raised")
+            notes = reg.counter(
+                "portfolio_measure_notes",
+                "measured-mode anomalies by kind "
+                "(timeout|outliers|measure_failed)")
+            for c in report.candidates:
+                if c.error is not None:
+                    failures.inc()
+                if c.measure_note:     # a failed measurement raises here
+                    notes.inc(kind="timeout" if c.measure_note.startswith(
+                        "timeout") else "outliers")
+        return report
+
+    def _tune(self, L: CSR) -> PortfolioReport:
         t0 = time.perf_counter()
         scored: list[PortfolioCandidate] = []
         failed: list[PortfolioCandidate] = []

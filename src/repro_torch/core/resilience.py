@@ -15,16 +15,21 @@ Error taxonomy
     ├── NumericalHealthError     non-finite / inaccurate solve data; carries
     │                            `.stage` ("input"|"output"|"residual")
     │                            and `.where`
-    └── PatternMismatchError     a value-only refactorization was handed a
-                                 matrix whose sparsity pattern differs from
-                                 the frozen one; carries `.where` and
-                                 `.detail`
+    ├── PatternMismatchError     a value-only refactorization was handed a
+    │                            matrix whose sparsity pattern differs from
+    │                            the frozen one; carries `.where` and
+    │                            `.detail`
+    └── AdmissionError           the solve service rejected a request (a
+                                 tenant's in-flight cap); carries
+                                 `.tenant`, `.depth`, `.limit`
 
 Warning taxonomy
 ================
     ResilienceWarning(UserWarning)
-    └── CacheQuarantineWarning   a disk-cache entry was unreadable or stale
-                                 and moved to `.bad/`
+    ├── CacheQuarantineWarning   a disk-cache entry was unreadable or stale
+    │                            and moved to `.bad/`
+    └── TunerFailureWarning      a background tune failed; the untuned
+                                 operator keeps serving
 
 Health policy
 =============
@@ -43,7 +48,8 @@ import os
 import numpy as np
 
 __all__ = ["ResilienceError", "NumericalHealthError", "PatternMismatchError",
-           "ResilienceWarning", "CacheQuarantineWarning", "HealthPolicy",
+           "AdmissionError", "ResilienceWarning", "CacheQuarantineWarning",
+           "TunerFailureWarning", "HealthPolicy",
            "SolveGuard", "resolve_health_policy", "RetryPolicy"]
 
 
@@ -83,12 +89,45 @@ class PatternMismatchError(ResilienceError):
         super().__init__(f"{where + ': ' if where else ''}{message}{tail}")
 
 
+class AdmissionError(ResilienceError):
+    """The serving tier rejected a request before it entered a queue.
+
+    Raised eagerly by `repro_torch.serving.SolveService.submit` — a
+    rejected request never consumes queue capacity, never holds a future,
+    and the caller can retry/shed load immediately.
+
+    tenant: the tenant whose request was rejected.
+    depth:  the tenant's in-flight depth at rejection time.
+    limit:  the configured cap (None when the rejection is not depth-based,
+            e.g. submitting to a closed service).
+    """
+
+    def __init__(self, message: str, *, tenant: str = "default",
+                 depth: int = 0, limit: int | None = None):
+        self.tenant = tenant
+        self.depth = depth
+        self.limit = limit
+        tail = f" (tenant {tenant!r}: depth {depth}" + \
+            (f" >= cap {limit})" if limit is not None else ")")
+        super().__init__(f"{message}{tail}")
+
+
 class ResilienceWarning(UserWarning):
     """Base class for resilience-layer warnings (downgrades are loud)."""
 
 
 class CacheQuarantineWarning(ResilienceWarning):
     """A corrupt/stale disk-cache entry was quarantined to `.bad/`."""
+
+
+class TunerFailureWarning(ResilienceWarning):
+    """A background tuning job failed; the untuned operator keeps serving.
+
+    Emitted by `repro_torch.serving.OperatorRegistry` when a
+    `StrategyPortfolio` run raises off the request path: the entry is
+    marked "degraded" (visible in `ServiceStats`/`registry.stats()`),
+    requests continue through the admitted `no_rewriting` operator, and
+    nothing blocks."""
 
 
 # -- health policy ------------------------------------------------------------

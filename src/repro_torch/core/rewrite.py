@@ -74,8 +74,13 @@ class EquationStore:
     (mutated by strategies as rows move).
     """
 
-    def __init__(self, L: CSR, level_of: np.ndarray):
+    def __init__(self, L: CSR, level_of: np.ndarray,
+                 keep_zeros: bool = False):
         self.L = L
+        # keep_zeros: an elimination update that lands on exactly 0 stays in
+        # the equation as an explicit zero instead of leaving it, so the
+        # fill follows the pattern alone (replay_transform's second pass)
+        self.keep_zeros = keep_zeros
         self.diag = L.diagonal_fast()
         if np.any(self.diag == 0):
             raise ValueError("zero diagonal — not a valid triangular system")
@@ -169,7 +174,7 @@ class EquationStore:
                 Ak, _ = memo[k]
                 for l, a in Ak.items():
                     v = A.get(l, 0.0) - s * a
-                    if v == 0.0:
+                    if v == 0.0 and not self.keep_zeros:
                         A.pop(l, None)
                     else:
                         A[l] = v

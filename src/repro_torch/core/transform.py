@@ -26,7 +26,10 @@ compiler -> engines) is documented in docs/architecture.md; per-strategy
 selection guidance lives in docs/strategies.md.
 
 Copy of `repro.core.transform` (numpy host half);
-tests/test_torch_host_copy.py holds the two equal.
+tests/test_torch_host_copy.py holds the two equal.  One difference:
+`replay_transform` follows new values whose elimination lands on exact
+zeros where the frozen system has fill, by keeping those zeros explicit
+on the frozen pattern (the reference raises PatternMismatchError).
 """
 from __future__ import annotations
 
@@ -219,11 +222,17 @@ def replay_transform(L_new: CSR, ts: TransformedSystem,
     Replays `ts.plan` (the committed (row, target) sequence) through a fresh
     EquationStore on `L_new` — pure numeric elimination over decisions that
     are already made, so level analysis (`GraphView`/`build_levels`), the
-    strategy, and validation solves are all skipped.  The exported A'/T/src
-    patterns are verified against the frozen ones: an exact floating-point
-    cancellation in the new values can change the rewritten system's fill,
-    and packing drifted values into the frozen schedule would be a finite
-    but wrong answer — so drift raises `PatternMismatchError` instead.
+    strategy, and validation solves are all skipped.
+
+    The replay keeps every elimination update that lands on exactly 0 (a
+    cancellation, or a product that underflows) as an explicit zero, so
+    its fill follows the pattern alone, and then takes the frozen A'/T
+    patterns out of it: fill the frozen build lost to its own zeros must be
+    exactly 0 under the new values too.  An explicit zero coefficient
+    changes no answer.  Fill outside the frozen patterns that is not 0
+    (the new values miss a cancellation the frozen build had, or the
+    pattern differs) would be a finite but wrong answer in the frozen
+    schedule, so it raises `PatternMismatchError`.
 
     The caller is responsible for checking that `L_new`'s pattern matches
     the matrix `ts` was built from (`sparse.csr.same_pattern`); this
@@ -239,14 +248,13 @@ def replay_transform(L_new: CSR, ts: TransformedSystem,
         raise PatternMismatchError(
             f"matrix has {L_new.n_rows} rows, frozen system has "
             f"{ts.diag.shape[0]}", where=where, detail="shape")
-    store = EquationStore(L_new, plan.level_of0)
+    store = EquationStore(L_new, plan.level_of0, keep_zeros=True)
     for i, target in plan.commits:
         res = store.rewrite_to_level(i, target)
         store.commit(i, target, res)
     A, T, src, d = store.export()
-    from ..sparse.csr import same_pattern
-    if not (same_pattern(A, ts.A) and same_pattern(T, ts.T)
-            and np.array_equal(src, ts.src)):
+    A, T = _on_frozen_pattern(A, ts.A), _on_frozen_pattern(T, ts.T)
+    if A is None or T is None or not np.array_equal(src, ts.src):
         raise PatternMismatchError(
             "replayed transformation produced different fill than the frozen "
             "system (an exact cancellation changed the rewritten pattern) — "
@@ -257,6 +265,32 @@ def replay_transform(L_new: CSR, ts: TransformedSystem,
     B = store.materialize_b(T, src) if ts.B is not None else None
     return dataclasses.replace(ts, A=A, T=T, src=src, diag=d,
                                metrics=metrics, B=B)
+
+
+def _on_frozen_pattern(X: CSR, F: CSR) -> CSR | None:
+    """X's values on F's pattern, or None unless F's entries are all in X
+    and X's other entries are exactly 0.  Both are row-major with sorted
+    columns (`from_coo`), so entry order follows the (row, col) keys."""
+    from ..sparse.csr import same_pattern
+    if same_pattern(X, F):
+        return X
+    if X.shape != F.shape:
+        return None
+    ncols = np.int64(X.shape[1])
+    xkeys = np.repeat(np.arange(X.n_rows, dtype=np.int64),
+                      X.row_nnz()) * ncols + X.indices
+    fkeys = np.repeat(np.arange(F.n_rows, dtype=np.int64),
+                      F.row_nnz()) * ncols + F.indices
+    pos = np.searchsorted(xkeys, fkeys)
+    if np.any(pos >= xkeys.size) or \
+            not np.array_equal(xkeys[np.minimum(pos, xkeys.size - 1)], fkeys):
+        return None
+    rest = np.ones(X.nnz, dtype=bool)
+    rest[pos] = False
+    if np.any(X.data[rest] != 0.0):
+        return None
+    return CSR(indptr=F.indptr.copy(), indices=F.indices.copy(),
+               data=X.data[pos], shape=F.shape)
 
 
 def _strict_lower_csr(L: CSR) -> CSR:

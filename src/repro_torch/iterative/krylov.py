@@ -39,8 +39,9 @@ STATUS_MAXITER, or STATUS_BREAKDOWN (`status_labels` decodes): a column
 whose step turns non-finite (an unstable preconditioner, a singular
 operator, a bad right-hand side) is frozen at its last healthy iterate
 and reported as a breakdown.  When the preconditioner has `stats()`,
-`SolveResult.stats` carries them.  The reference's per-iteration trace
-events are not ported yet (ROADMAP.md, queue 1: observability).
+`SolveResult.stats` carries them.  With tracing on (`repro_torch.obs`),
+each solver emits the reference's `krylov.residual` events from the
+history after its loop (at most 64, evenly spaced).
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ import typing
 import numpy as np
 import torch
 
+from ..obs import trace as _obs
 from .operators import as_matvec, as_preconditioner
 
 __all__ = ["SolveResult", "cg", "bicgstab", "gmres",
@@ -163,8 +165,36 @@ def _status(done, brk):
                        ).to(torch.int32)
 
 
-def _finish(x, done, brk, iters, hist, preconditioner) -> SolveResult:
-    """Build the result and merge the preconditioner's stats into it."""
+# per-solver residual events are capped: a 10k-iteration solve must not
+# flood the trace, so the history is thinned to evenly spaced samples
+_TRACE_EVENT_CAP = 64
+
+
+def _trace_iterations(hist: torch.Tensor, iters: torch.Tensor,
+                      solver: str) -> None:
+    """`krylov.residual` events from the recorded history (first column
+    when batched), read after the loop and only while tracing is on, so a
+    disabled tracer costs no device-to-host copy."""
+    if not _obs.enabled():
+        return
+    col = hist.double().cpu().numpy()
+    col = col if col.ndim == 1 else col[:, 0]
+    last = int(iters.max())
+    idx = np.arange(min(last + 1, col.shape[0]))
+    if idx.size > _TRACE_EVENT_CAP:
+        idx = np.unique(np.linspace(0, idx[-1],
+                                    _TRACE_EVENT_CAP).astype(int))
+    for i in idx:
+        if np.isfinite(col[i]):
+            _obs.event("krylov.residual", driver=solver, iteration=int(i),
+                       residual=float(col[i]))
+
+
+def _finish(x, done, brk, iters, hist, preconditioner,
+            solver: str) -> SolveResult:
+    """Build the result, emit its residual events and merge the
+    preconditioner's stats into it."""
+    _trace_iterations(hist, iters, solver)
     stats_fn = getattr(preconditioner, "stats", None)
     return SolveResult(x=x, converged=done, iterations=iters,
                        residual_norms=hist, status=_status(done, brk),
@@ -225,7 +255,7 @@ def cg(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
         done = done | (ok & (rn <= target))
         brk = brk | bad
         it += 1
-    return _finish(x, done, brk, iters, hist, preconditioner)
+    return _finish(x, done, brk, iters, hist, preconditioner, "cg")
 
 
 def bicgstab(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
@@ -295,7 +325,8 @@ def bicgstab(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
         done = done | (upd & (rn <= target))
         brk = brk | (~stop & broke)
         it += 1
-    return _finish(x, done, brk, iters, hist, preconditioner)
+    return _finish(x, done, brk, iters, hist, preconditioner,
+                   "bicgstab")
 
 
 def gmres(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
@@ -426,4 +457,5 @@ def gmres(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
         done = done | (ok & (rn_new <= target))
         brk = brk | bad
         cycle += 1
-    return _finish(x, done, brk, iters, hist, preconditioner)
+    return _finish(x, done, brk, iters, hist, preconditioner,
+                   "gmres")

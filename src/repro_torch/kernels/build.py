@@ -7,6 +7,9 @@ library goes into `build/kernels/` at the repository root (listed in
 `.gitignore`), named by a hash of its source, so an edited source is
 rebuilt and an unchanged one is reused.  A failed build raises with the
 compiler's output: there is no fallback to the plain version.
+`entry_points` binds a library's C functions once, with their argument
+types, so that launches from several threads never configure a shared
+ctypes function object again.
 """
 from __future__ import annotations
 
@@ -20,15 +23,16 @@ import uuid
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "build_library",
-           "load_library"]
+           "load_library", "entry_points"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 _LOADED: dict = {}
+_BOUND: dict = {}
 
 
 def nvcc_path() -> str:
@@ -73,3 +77,22 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LOADED[name] = ctypes.CDLL(str(build_library(name)))
         return lib
+
+
+def entry_points(name: str, signatures: dict) -> dict:
+    """The C functions of `csrc/<name>.cu` named in `signatures` (function
+    name -> argtypes), each returning an int error code: {name: function}.
+    Their `argtypes`/`restype` are set once, when the library is first
+    bound; every later call returns the same functions."""
+    with _LOCK:
+        fns = _BOUND.get(name)
+        if fns is None:
+            lib = load_library(name)
+            fns = {}
+            for fn_name, argtypes in signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = list(argtypes)
+                fns[fn_name] = fn
+            _BOUND[name] = fns
+        return fns

@@ -14,7 +14,7 @@ caller gives it.
 
 Dispatch: CPU tensors run the plain version (`kernels/ref.py`) and count
 under "plain"; CUDA tensors launch the kernel or raise.  `LAUNCHES`
-counts each.
+counts each, atomically across threads (`kernels.counts.Counts`).
 """
 from __future__ import annotations
 
@@ -23,20 +23,21 @@ import ctypes
 import torch
 
 from . import ref
+from .counts import Counts
 
 __all__ = ["spmv_ell", "LAUNCHES", "reset_launch_counts"]
 
 # launches of the kernel, and of the plain version taken for CPU tensors
-LAUNCHES = {"spmv_ell": 0, "plain": 0}
+LAUNCHES = Counts("spmv_ell", "plain")
 
 _ENTRY = {torch.float32: "spmv_ell_f32_launch",
           torch.float64: "spmv_ell_f64_launch"}
-_FNS: dict = {}         # dtype -> the entry point, argtypes set once
+_SIGNATURES = {name: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 +
+               [ctypes.c_void_p] for name in _ENTRY.values()}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.reset()
 
 
 def _check(ell_idx: torch.Tensor, ell_coef: torch.Tensor,
@@ -61,15 +62,8 @@ def _check(ell_idx: torch.Tensor, ell_coef: torch.Tensor,
 def _entry(dtype: torch.dtype):
     """The library's entry point for `dtype`, built and bound on first
     use, so a launch does not configure its ctypes function again."""
-    fn = _FNS.get(dtype)
-    if fn is None:
-        from .build import load_library
-        fn = getattr(load_library("spmv_ell"), _ENTRY[dtype])
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
-            [ctypes.c_void_p]
-        _FNS[dtype] = fn
-    return fn
+    from .build import entry_points
+    return entry_points("spmv_ell", _SIGNATURES)[_ENTRY[dtype]]
 
 
 def _launch(ell_idx: torch.Tensor, ell_coef: torch.Tensor,
@@ -92,7 +86,7 @@ def _launch(ell_idx: torch.Tensor, ell_coef: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"spmv_ell_kernel launch failed: CUDA error {err} "
                            f"(n_rows={n_rows}, D={D}, {ell_coef.dtype})")
-    LAUNCHES["spmv_ell"] += 1
+    LAUNCHES.add("spmv_ell")
     return y
 
 
@@ -109,6 +103,6 @@ def spmv_ell(ell_idx: torch.Tensor, ell_coef: torch.Tensor,
     _check(ell_idx, ell_coef, x_pad)
     x_pad = x_pad.to(ell_coef.dtype)
     if ell_coef.device.type == "cpu":
-        LAUNCHES["plain"] += 1
+        LAUNCHES.add("plain")
         return ref.spmv_ell_ref(ell_idx, ell_coef, x_pad)
     return _launch(ell_idx, ell_coef, x_pad)

@@ -72,6 +72,8 @@ Dispatch: a wrapper given CPU tensors runs the plain version
 launches the kernel or raises.  `LAUNCHES` counts solves per entry point
 (one per solve, the dependency-free pass included); `PACKS` counts host
 packs, device value refreshes, and the refreshes that had to re-pack.
+Both are `kernels.counts.Counts`, whose increments are atomic across the
+threads that launch at once (a solve service's workers and its tuner).
 """
 from __future__ import annotations
 
@@ -85,6 +87,7 @@ import numpy as np
 import torch
 
 from . import ref
+from .counts import Counts
 
 __all__ = ["PackedSchedule", "ValueMap", "pack_groups", "pack_schedule",
            "refresh_packed_values", "schedule_values", "PACKS",
@@ -96,8 +99,8 @@ __all__ = ["PackedSchedule", "ValueMap", "pack_groups", "pack_schedule",
 
 # launches per entry point: K1, K2, K3 (which launches through K1), K1's
 # stamped form, and the plain version taken for CPU tensors
-LAUNCHES = {"sptrsv_groups": 0, "sptrsv_groups_multi": 0,
-            "sptrsv_levels": 0, "sptrsv_groups_stamped": 0, "plain": 0}
+LAUNCHES = Counts("sptrsv_groups", "sptrsv_groups_multi", "sptrsv_levels",
+                  "sptrsv_groups_stamped", "plain")
 
 LONG_DEPS = 32              # a lane with more deps is summed by a warp,
 LONG_CHUNK = 32 * 8         # which gathers this many of them per round
@@ -124,12 +127,27 @@ ROUND_WARPS = 75.0
 
 # host packs (`pack_groups`), value refreshes on the packed arrays, and
 # the refreshes that found the zero set moved and re-packed
-PACKS = {"pack_groups": 0, "refreshes": 0, "repacks": 0}
+PACKS = Counts("pack_groups", "refreshes", "repacks")
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.reset()
+
+
+# the library's entry points and their C argument types
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "sptrsv_tiles_launch": [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _INT, _PTR,
+                            _PTR] + [_INT] * 4 + [_PTR],
+    "sptrsv_free_launch": [_PTR, _PTR, _INT, _PTR, _PTR, _PTR],
+    "sptrsv_tiles_stamped_launch": [_PTR, _PTR, _INT, _PTR, _PTR, _PTR] +
+                                   [_INT] * 3 + [_PTR, _PTR],
+}
+
+
+def _entry(name: str):
+    from .build import entry_points
+    return entry_points("sptrsv_level", _SIGNATURES)[name]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -454,7 +472,7 @@ def pack_groups(groups, n: int, n_carry: int) -> PackedSchedule:
     (module doc); the dependency-free rows go to the free pass.  Raises on
     a malformed carry chain (a slot with more than one writer or reader)
     and on a lane that reads a row no earlier step finalizes."""
-    PACKS["pack_groups"] += 1
+    PACKS.add("pack_groups")
     t0 = time.perf_counter()
     num_sched_steps = int(_np(groups[0][0]).shape[0]) if groups else 0
     flat = _flat_lanes(groups, n, n_carry)
@@ -591,14 +609,14 @@ def refresh_packed_values(packed: PackedSchedule, sched) -> tuple:
     dev = packed.tiles.device
     coef = vals[:vm.coef_slots]
     if (coef[vm.kept] == 0).any() or (coef[vm.dropped] != 0).any():
-        PACKS["repacks"] += 1
+        PACKS.add("repacks")
         return pack_schedule(sched).to(dev), True
     tile_word, tile_src, far_word, far_src, free_src = vm.staged(dev)
     v = torch.from_numpy(np.asarray(vals, dtype=np.float32)).to(dev)
     tiles, far = packed.tiles.clone(), packed.far.clone()
     tiles.view(torch.float32).index_copy_(0, tile_word, v[tile_src])
     far.view(torch.float32).index_copy_(0, far_word, v[far_src])
-    PACKS["refreshes"] += 1
+    PACKS.add("refreshes")
     return dataclasses.replace(packed, tiles=tiles, far=far,
                                free_dinv=v[free_src]), False
 
@@ -764,7 +782,6 @@ def _check_launch(packed: PackedSchedule, c_pad: torch.Tensor) -> None:
 
 def _launch(packed: PackedSchedule, c_pad: torch.Tensor) -> torch.Tensor:
     """Check and launch the CUDA kernels on c_pad (n+1, R) float32."""
-    from .build import load_library
     _check_launch(packed, c_pad)
     dev = c_pad.device
     R = int(c_pad.shape[1])
@@ -772,13 +789,7 @@ def _launch(packed: PackedSchedule, c_pad: torch.Tensor) -> torch.Tensor:
         c_pad = c_pad.clone()           # float4 gathers need 16-byte rows
     x = torch.zeros((packed.n + 1, R), dtype=torch.float32, device=dev)
     consumers = consumer_threads(packed, R)
-    lib = load_library("sptrsv_level")
-    fn = lib.sptrsv_tiles_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + \
-        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = _entry("sptrsv_tiles_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(packed.tiles.data_ptr(), packed.tile_ptr.data_ptr(),
@@ -809,7 +820,7 @@ def _kernel_solve(groups, c_pad: torch.Tensor, n: int, n_carry: int,
         raise ValueError(f"packed schedule is for n={packed.n}, n_carry="
                          f"{packed.n_carry}, not n={n}, n_carry={n_carry}")
     x = _launch(packed, c_pad)
-    LAUNCHES[key] += 1
+    LAUNCHES.add(key)
     return x[:n]
 
 
@@ -817,7 +828,7 @@ def _plain(groups, c_pad: torch.Tensor, n: int, n_carry: int) \
         -> torch.Tensor:
     if groups is None:
         raise ValueError("the plain version needs the width groups")
-    LAUNCHES["plain"] += 1
+    LAUNCHES.add("plain")
     return ref.sptrsv_levels_grouped_ref(groups, c_pad, n, n_carry)
 
 
@@ -885,21 +896,14 @@ def _stamped_launch(packed: PackedSchedule, c_pad: torch.Tensor) \
         -> StampedSolve:
     """The free pass and the stamped tile kernel on c_pad (n+1, 1), each
     between two CUDA events on the current stream."""
-    from .build import load_library
     _check_launch(packed, c_pad)
     dev = c_pad.device
     x = torch.zeros((packed.n + 1, 1), dtype=torch.float32, device=dev)
     tile_steps = packed.num_steps - (1 if packed.num_free else 0)
     stamps = torch.zeros(tile_steps + 2, dtype=torch.int64, device=dev)
     consumers = consumer_threads(packed, 1)
-    lib = load_library("sptrsv_level")
-    free_fn, tile_fn = lib.sptrsv_free_launch, lib.sptrsv_tiles_stamped_launch
-    free_fn.restype = tile_fn.restype = ctypes.c_int
-    free_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    tile_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + \
-        [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
+    free_fn = _entry("sptrsv_free_launch")
+    tile_fn = _entry("sptrsv_tiles_stamped_launch")
     out = StampedSolve(x=x, stamps=stamps)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -952,7 +956,7 @@ def sptrsv_groups_stamped(groups, c_pad: torch.Tensor, *, n: int,
         raise ValueError(f"packed schedule is for n={packed.n}, n_carry="
                          f"{packed.n_carry}, not n={n}, n_carry={n_carry}")
     out = _stamped_launch(packed, c_pad.reshape(-1, 1).contiguous())
-    LAUNCHES["sptrsv_groups_stamped"] += 1
+    LAUNCHES.add("sptrsv_groups_stamped")
     out.x = out.x[:n, 0]
     return out
 

@@ -38,12 +38,10 @@ import time
 import numpy as np
 import torch
 
+from .metrics import DEFAULT_MS_BUCKETS
+
 __all__ = ["ScheduleProfile", "profile_schedule", "profile_operator",
            "merge_profiles", "DEFAULT_MS_BUCKETS"]
-
-# step-time histogram bounds (ms), the reference's shared latency buckets
-DEFAULT_MS_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0,
-                      50.0, 100.0, 250.0, 1000.0, 5000.0)
 
 
 @dataclasses.dataclass

@@ -54,10 +54,16 @@ or (under `health="strict"`) a large residual raises
 `NumericalHealthError`.  Nothing is repaired, and no engine stands in for
 a failing one.
 
-Not ported yet (ROADMAP.md, queue 1): `mesh=`, engine fallback chains,
-health repair and the host-reference escape hatch, the strict health
-level's schedule verification (at build and on `update_values`), and
-tracing spans.
+`op.stats` is a view over a metrics registry (`repro_torch.obs`), and
+the build, the value update, the engine compile and the solve open the
+reference's spans (`operator.tune`, `operator.update_values`,
+`engine.compile`, `operator.solve`, `operator.refine`) and events
+(`operator.cache`, `health.violation`) when tracing is on.
+
+Not ported yet (ROADMAP.md, queue 1): `mesh=`, engine fallback chains
+(and their `engine.solve`/`engine.fallback` spans), health repair and the
+host-reference escape hatch, and the strict health level's schedule
+verification (at build and on `update_values`).
 """
 from __future__ import annotations
 
@@ -74,6 +80,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..obs import trace as _obs
+from ..obs.metrics import MetricsRegistry
 from ..sparse.csr import CSR, reverse_both
 
 __all__ = ["TriangularOperator", "OperatorStats", "matrix_fingerprint",
@@ -183,72 +191,129 @@ def value_fingerprint(L: CSR) -> str:
 
 
 class OperatorStats:
-    """Per-operator solve statistics, updated by every solve().
+    """Per-operator stats plane: a VIEW over a `repro_torch.obs` metrics
+    registry (prefix "repro_operator"), updated by every solve().
 
-    The field names and `to_dict()` match the reference's; the metrics-
-    registry view behind them is still to be ported.  Updates take one
-    lock per event, so concurrent solves never interleave a record.
-    `repacks` (the port's own, outside `to_dict()`) counts the value
-    updates whose new zero set made the SpTRSV kernel's packing run anew.
+    Every field is backed by one instrument — Counter, Gauge, or Text —
+    in `self.registry`, with the reference's names, helps and `to_dict()`
+    order; reading a field reads the instrument, and Prometheus/JSON
+    export reads the SAME instruments, so there is no second ledger.
+    Updates are atomic per event: each record_* call commits its
+    instruments under the registry's one shared lock, so concurrent
+    `solve()` calls from a serving tier's worker threads never interleave
+    a half-written record.  The record methods are the reference's;
+    `repacks` (the port's own counter, outside `to_dict()`) counts the
+    value updates whose new zero set made the SpTRSV kernel's packing run
+    anew.  The port neither falls back nor repairs yet, so nothing calls
+    `record_fallback` or `record_health_action`: `fallbacks`,
+    `fallback_downgrades` and `last_fallback` stay at their initial values.
     """
 
+    _COUNTER_FIELDS = (
+        ("solves", "host solve() calls completed"),
+        ("rhs_columns", "right-hand-side columns solved"),
+        ("refine_rounds", "iterative-refinement correction rounds"),
+        ("value_updates", "update_values() calls served"),
+        ("fallbacks", "downgraded engine dispatches (attempts)"),
+        ("fallback_downgrades", "unique requested->used engine downgrades"),
+        ("health_events", "health violations detected"),
+        ("repacks", "value updates that packed the SpTRSV kernel's "
+                    "schedule anew (float32 zero set moved)"),
+    )
+    _GAUGE_FIELDS = (
+        ("total_solve_ms", 0.0, "cumulative solve wall time (ms)"),
+        ("last_solve_ms", 0.0, "wall time of the last solve (ms)"),
+        ("last_residual", float("nan"),
+         "relative residual of the last solve"),
+        ("tune_ms", 0.0, "wall time of the tuner run behind the payload"),
+        ("last_update_ms", 0.0, "wall time of the last value update (ms)"),
+    )
+    _TEXT_FIELDS = (
+        # "built" | "memory" | "disk" | "pattern" (payload derived from
+        # an equal-pattern artifact via the refactorization fast path)
+        ("cache_source", "how the payload was obtained"),
+        ("last_fallback", "last downgrade as requested->used"),
+        ("last_health_event", "last health event as stage:action"),
+    )
     _FIELDS = ("solves", "rhs_columns", "refine_rounds", "total_solve_ms",
                "last_solve_ms", "last_residual", "cache_source", "tune_ms",
                "value_updates", "last_update_ms", "fallbacks",
                "fallback_downgrades", "last_fallback", "health_events",
                "last_health_event")
 
-    def __init__(self, cache_source: str = "built", tune_ms: float = 0.0):
-        self._lock = threading.Lock()
-        self.solves = 0
-        self.rhs_columns = 0
-        self.refine_rounds = 0
-        self.total_solve_ms = 0.0
-        self.last_solve_ms = 0.0
-        self.last_residual = float("nan")
-        self.cache_source = cache_source
-        self.tune_ms = float(tune_ms)
-        self.value_updates = 0
-        self.last_update_ms = 0.0
-        self.repacks = 0
-        # the port neither falls back nor repairs yet: these stay at their
-        # initial values
-        self.fallbacks = 0
-        self.fallback_downgrades = 0
-        self.last_fallback = ""
-        self.health_events = 0
-        self.last_health_event = ""
+    def __init__(self, cache_source: str = "built", tune_ms: float = 0.0,
+                 registry: MetricsRegistry | None = None):
+        self.registry = registry if registry is not None else \
+            MetricsRegistry(prefix="repro_operator")
+        r = self.registry
+        self._lock = r.lock
+        self._inst = {}
+        for name, help in self._COUNTER_FIELDS:
+            self._inst[name] = r.counter(name, help)
+        for name, default, help in self._GAUGE_FIELDS:
+            self._inst[name] = r.gauge(name, help, default=default)
+        for name, help in self._TEXT_FIELDS:
+            self._inst[name] = r.text(name, help)
+        self._inst["cache_source"].set(cache_source)
+        self._inst["tune_ms"].set(float(tune_ms))
 
     def to_dict(self) -> dict:
         with self._lock:
-            return {name: getattr(self, name) for name in self._FIELDS}
+            return {name: self._inst[name].value() for name in self._FIELDS}
 
+    # -- atomic mutation (one lock acquisition per event) ---------------------
     def record_solve(self, *, ms: float, columns: int, rounds: int,
                      residual: float) -> None:
         with self._lock:
-            self.solves += 1
-            self.rhs_columns += columns
-            self.refine_rounds += rounds
-            self.total_solve_ms += ms
-            self.last_solve_ms = ms
-            self.last_residual = residual
+            self._inst["solves"].inc()
+            self._inst["rhs_columns"].inc(columns)
+            self._inst["refine_rounds"].inc(rounds)
+            self._inst["total_solve_ms"].add(ms)
+            self._inst["last_solve_ms"].set(ms)
+            self._inst["last_residual"].set(residual)
 
     def record_value_update(self, *, ms: float, cache_source: str,
-                            repacks: int) -> None:
+                            repacks: int = 0) -> None:
         with self._lock:
-            self.value_updates += 1
-            self.last_update_ms = ms
-            self.cache_source = cache_source
-            self.repacks += repacks
+            self._inst["value_updates"].inc()
+            self._inst["last_update_ms"].set(ms)
+            self._inst["cache_source"].set(cache_source)
+            self._inst["repacks"].inc(repacks)
 
-    def record_health_event(self, last: str) -> None:
+    def record_fallback(self, last: str, *, new_pair: bool = False) -> None:
+        """One downgraded dispatch; `new_pair` marks the first sighting of
+        this (requested, used) pair.  Unused until fallback chains are
+        ported (ROADMAP.md, queue 1)."""
         with self._lock:
-            self.health_events += 1
-            self.last_health_event = last
+            self._inst["fallbacks"].inc()
+            if new_pair:
+                self._inst["fallback_downgrades"].inc()
+            self._inst["last_fallback"].set(last)
+
+    def record_health_event(self, last: str = "") -> None:
+        with self._lock:
+            self._inst["health_events"].inc()
+            if last:
+                self._inst["last_health_event"].set(last)
+
+    def record_health_action(self, last: str) -> None:
+        self._inst["last_health_event"].set(last)
 
     def __repr__(self) -> str:    # pragma: no cover
         return "OperatorStats(" + ", ".join(
             f"{k}={v!r}" for k, v in self.to_dict().items()) + ")"
+
+
+def _stats_field_property(name: str) -> property:
+    """Read access to one OperatorStats field: its backing instrument."""
+    return property(lambda self: self._inst[name].value())
+
+
+for _name, *_rest in (OperatorStats._COUNTER_FIELDS
+                      + OperatorStats._GAUGE_FIELDS
+                      + OperatorStats._TEXT_FIELDS):
+    setattr(OperatorStats, _name, _stats_field_property(_name))
+del _name, _rest
 
 
 def _payload_preamble(payload: dict):
@@ -439,6 +504,8 @@ class TriangularOperator:
                 # pack and stage the sweep's schedules now, so the build
                 # and not the first solve pays the host packing
                 op.device_solve_fn()
+            _obs.event("operator.cache", source=source, n=L.n_rows,
+                       strategy=payload["strategy"])
             return op
 
         if cache:
@@ -463,22 +530,24 @@ class TriangularOperator:
         L_eff, reversed_ = orient_lower(L, side, bool(transpose))
         t0 = time.perf_counter()
         report = None
-        if auto:
-            tuner = portfolio if portfolio is not None else \
-                StrategyPortfolio(chunk=chunk, max_deps=max_deps,
-                                  dtype=dtype, cost_model=cost_model,
-                                  measure_top_k=measure_top_k, engine=eng,
-                                  device=dev)
-            report = tuner.tune(L_eff)
-            best = report.best
-            ts, sched, label = best.ts, best.sched, best.label
-            report = report.slim()  # candidates keep stats, drop arrays
-        else:
-            strat = make_strategy(tune)
-            label = strategy_label(strat)
-            ts = transform(L_eff, strat, validate=False, codegen=False)
-            sched = schedule_for_transformed(ts, chunk=chunk,
-                                             max_deps=max_deps, dtype=dtype)
+        with _obs.span("operator.tune", n=L.n_rows, tune=tune_key):
+            if auto:
+                tuner = portfolio if portfolio is not None else \
+                    StrategyPortfolio(chunk=chunk, max_deps=max_deps,
+                                      dtype=dtype, cost_model=cost_model,
+                                      measure_top_k=measure_top_k,
+                                      engine=eng, device=dev)
+                report = tuner.tune(L_eff)
+                best = report.best
+                ts, sched, label = best.ts, best.sched, best.label
+                report = report.slim()  # candidates keep stats, drop arrays
+            else:
+                strat = make_strategy(tune)
+                label = strategy_label(strat)
+                ts = transform(L_eff, strat, validate=False, codegen=False)
+                sched = schedule_for_transformed(ts, chunk=chunk,
+                                                 max_deps=max_deps,
+                                                 dtype=dtype)
         payload = {"version": CACHE_VERSION, "strategy": label, "ts": ts,
                    "sched": sched, "report": report, "config": cfg,
                    "reversed": reversed_,
@@ -616,25 +685,27 @@ class TriangularOperator:
                 f"new matrix values contain non-finite entries in {where}",
                 stage="input", where=where)
         t0 = time.perf_counter()
-        cache = bool(self._build_kwargs.get("cache", False))
-        cache_dir = self._build_kwargs.get("cache_dir")
-        key = (f"{self._pattern_cache_key(new_L, self._config)}-"
-               f"{value_fingerprint(new_L)}")
-        payload, source, repacks = None, "pattern", 0
-        if cache:
-            payload = self._memory_get(key)
-            if payload is not None:
-                source = "memory"
-            else:
-                payload = self._disk_load(key, cache_dir)
-                if payload is not None:
-                    source = "disk"
-                    self._memory_put(key, payload)
-        if payload is None:
-            payload, repacks = self._derive_payload(self._payload, new_L)
+        with _obs.span("operator.update_values", n=self.n) as usp:
+            cache = bool(self._build_kwargs.get("cache", False))
+            cache_dir = self._build_kwargs.get("cache_dir")
+            key = (f"{self._pattern_cache_key(new_L, self._config)}-"
+                   f"{value_fingerprint(new_L)}")
+            payload, source, repacks = None, "pattern", 0
             if cache:
-                self._memory_put(key, payload)
-                self._disk_store(key, payload, cache_dir)
+                payload = self._memory_get(key)
+                if payload is not None:
+                    source = "memory"
+                else:
+                    payload = self._disk_load(key, cache_dir)
+                    if payload is not None:
+                        source = "disk"
+                        self._memory_put(key, payload)
+            if payload is None:
+                payload, repacks = self._derive_payload(self._payload, new_L)
+                if cache:
+                    self._memory_put(key, payload)
+                    self._disk_store(key, payload, cache_dir)
+            usp.set(source=source, repacks=repacks)
         self._L = new_L
         self._payload = payload
         self._ts = payload["ts"]
@@ -778,7 +849,9 @@ class TriangularOperator:
         cached = self._runtime["compiled"].get(engine.name)
         if cached is not None and cached[0] is engine:
             return cached[1]
-        fn = engine.compile(self._staged())
+        with _obs.span("engine.compile", engine=engine.name, n=self.n,
+                       steps=self._sched.num_steps):
+            fn = engine.compile(self._staged())
         self._runtime["compiled"][engine.name] = (engine, fn)
         return fn
 
@@ -898,32 +971,40 @@ class TriangularOperator:
         t0 = time.perf_counter()
         resid = float("nan")
         rounds = 0
-        x = self._oriented_solve(
-            b, eng, out_dtype=np.float64 if max_refine > 0 else None)
-        if max_refine > 0:
-            bscale = max(1.0, float(np.abs(b).max(initial=0.0)))
-            while True:
-                r = b - self._L.matvec(x, transpose=self.transpose)
-                resid = float(np.abs(r).max(initial=0.0)) / bscale
-                if not np.isfinite(resid):
-                    break           # poisoned: the output check raises
-                if resid <= refine_tol or rounds >= max_refine:
-                    break
-                x = x + self._oriented_solve(r, eng, out_dtype=np.float64)
-                rounds += 1
-        reason, stage = guard.output_unhealthy(x), "output"
-        if reason is None and policy.residual_check:
-            if not np.isfinite(resid):      # unset (max_refine=0)
-                resid = self._relative_residual(b, x)
-            reason, stage = guard.residual_unhealthy(resid), "residual"
-        if reason is not None:
-            self.stats.record_health_event(f"{stage}:raised")
-            raise NumericalHealthError(reason, stage=stage,
-                                       where=guard.where)
-        self.stats.record_solve(
-            ms=(time.perf_counter() - t0) * 1e3,
-            columns=1 if b.ndim == 1 else b.shape[1], rounds=rounds,
-            residual=resid)
+        columns = 1 if b.ndim == 1 else b.shape[1]
+        with _obs.span("operator.solve", n=self.n, engine=eng.name,
+                       columns=columns) as sp:
+            x = self._oriented_solve(
+                b, eng, out_dtype=np.float64 if max_refine > 0 else None)
+            if max_refine > 0:
+                bscale = max(1.0, float(np.abs(b).max(initial=0.0)))
+                with _obs.span("operator.refine", tol=refine_tol) as rsp:
+                    while True:
+                        r = b - self._L.matvec(x, transpose=self.transpose)
+                        resid = float(np.abs(r).max(initial=0.0)) / bscale
+                        if not np.isfinite(resid):
+                            break   # poisoned: the output check raises
+                        if resid <= refine_tol or rounds >= max_refine:
+                            break
+                        x = x + self._oriented_solve(r, eng,
+                                                     out_dtype=np.float64)
+                        rounds += 1
+                    rsp.set(rounds=rounds, residual=resid)
+            reason, stage = guard.output_unhealthy(x), "output"
+            if reason is None and policy.residual_check:
+                if not np.isfinite(resid):      # unset (max_refine=0)
+                    resid = self._relative_residual(b, x)
+                reason, stage = guard.residual_unhealthy(resid), "residual"
+            if reason is not None:
+                self.stats.record_health_event(f"{stage}:raised")
+                _obs.event("health.violation", stage=stage, reason=reason)
+                raise NumericalHealthError(reason, stage=stage,
+                                           where=guard.where)
+            ms = (time.perf_counter() - t0) * 1e3
+            sp.set(ms=ms, rounds=rounds, engine_used=eng.name,
+                   reference=False)
+            self.stats.record_solve(ms=ms, columns=columns, rounds=rounds,
+                                    residual=resid)
         return x
 
     def __repr__(self) -> str:  # pragma: no cover
