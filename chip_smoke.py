@@ -117,11 +117,37 @@ non-zero:
    against their plain version on every served operator; `python -m
    repro_torch.serving.server --smoke` in a new process must exit 0.  K1
    and K2 must be launched, the plain version never.
-9. The kernels line and the contract line.
+9. Static verification at full size.  `from_csr(..., health="strict",
+   cache=False)` for lung2_like(1.0) and torso2_like(1.0) under
+   no_rewriting and avgLevelCost: each certificate (steps, levels,
+   critical path, nnz, flops, padded flops) and packed certificate (steps,
+   tiles, lanes, long lanes, far pairs, free rows), the verifiers' host
+   seconds beside the build's, the packed steps equal to the DAG's level
+   count of A', and strict `solve(b)` (refined and max_refine=0) and
+   `solve(B)` for B (n, 8) within phase 4's gates; a second strict cached
+   build must be a memory hit carrying the same certificate and running
+   no verifier.  The four static-defect injectors (`core.faults`:
+   reordered step, row finalized twice, out-of-bounds gather, corrupt
+   replay plan) under a strict build of lung2 avgLevelCost must each raise
+   their typed error and check (step and lane >= 0 for the first three)
+   with the pack and launch counts unchanged; what the first two do with
+   the checks off is printed (`oob_ell_index` never runs unverified on the
+   card).  Ten strict `update_values` steps on lung2's L (no_rewriting)
+   must certify each device refresh's rewritten words, their ms printed
+   beside the audit's and an unaudited step's; `corrupt_values_payload`
+   must raise `ScheduleInvariantError` (`finite` or `dinv`) and leave the
+   operator solving its previous values within the gates.
+   `ProfilingEngine(get_engine("cuda"))` on lung2 no_rewriting must solve
+   within 1e-5 of the serving K1 and the oracle's gate, through K1's
+   stamped form, with its profile's steps equal to the packed steps, and
+   solve `B` (n, 2) column by column within 1e-5 of the serving K2.  K1,
+   its stamped form and K2 must be launched, the plain version never.
+10. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
-With `--sweep` or `--ab`, phases 3-8 give way to studies of the SpTRSV kernel on lung2's
+With `--sweep` or `--ab`, phases 3-9 give way to studies of the SpTRSV
+kernel on lung2's
 and torso2's L and IC(0) L^T (R = 1, 8), written to
 chiprun_out/chip_smoke_study.json: `--sweep` times it at every consumer
 count and fits `ROUND_WARPS`, the ratio from which the wrapper sizes the
@@ -130,6 +156,8 @@ commit, or a variant of this one) beside this one's.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -1924,6 +1952,339 @@ def phase_serving(rng) -> tuple:
     return res, counts
 
 
+# -- phase 9: static verification ------------------------------------------
+
+STATIC_STRATEGIES = ("no_rewriting", "avgLevelCost")
+STATIC_INJECTORS = (("reorder_schedule_step", "ScheduleInvariantError",
+                     "race"),
+                    ("duplicate_lane_row", "ScheduleInvariantError",
+                     "bijection"),
+                    ("oob_ell_index", "ScheduleInvariantError",
+                     "index-bounds"),
+                    ("corrupt_replay_plan", "TransformInvariantError",
+                     "replay-bounds"))
+# what the JAX package also locates to a step and a lane
+LOCATED = ("race", "bijection", "index-bounds")
+
+
+@contextlib.contextmanager
+def verifier_clock():
+    """Host seconds the operator spends in `repro_torch.analysis.verify`
+    (outermost calls only, so a verifier calling another counts once),
+    and the calls by name.  The operator imports its verifiers from the
+    module when it calls them, so wrapping the module's functions sees
+    every call."""
+    from repro_torch.analysis import verify as V
+    names = ("verify_operator_payload", "verify_level_schedule",
+             "verify_packed_schedule", "verify_packed_values",
+             "verify_schedule_values", "audit_transformed_system")
+    real = {n: getattr(V, n) for n in names}
+    acc = {"s": 0.0, "calls": {}}
+    depth = [0]
+
+    def wrap(name):
+        def timed(*args, **kwargs):
+            acc["calls"][name] = acc["calls"].get(name, 0) + 1
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    acc["s"] += time.perf_counter() - t0
+        return timed
+
+    for n in names:
+        setattr(V, n, wrap(n))
+    try:
+        yield acc
+    finally:
+        for n in names:
+            setattr(V, n, real[n])
+
+
+def static_builds(rng, mats) -> list:
+    """Strict builds of lung2 and torso2 under no_rewriting and
+    avgLevelCost, their certificates, and strict solves within phase 4's
+    gates."""
+    from repro_torch.analysis import certificate_dict
+    from repro_torch.solver import TriangularOperator
+    rows = []
+    for mat, L in mats.items():
+        n = L.n_rows
+        b = rng.standard_normal(n)
+        B = rng.standard_normal((n, 8))
+        x_ref = oracle(L, b)
+        scale = max(1.0, float(np.abs(x_ref).max()))
+        for strat in STATIC_STRATEGIES:
+            with verifier_clock() as vc:
+                op, build_s = synced_s(lambda: TriangularOperator.from_csr(
+                    L, tune=strat, cache=False, health="strict"))
+            cert = op.certificate
+            pcert = op._payload.get("packed_certificate")
+            check(cert is not None and pcert is not None,
+                  f"{mat}/{strat}: a strict build carries no certificate")
+            levels = dag_levels(lower_with_diag(op.transformed.A,
+                                                op.transformed.diag))
+            check(pcert["packed"].steps == levels ==
+                  op._staged().packed().num_steps,
+                  f"{mat}/{strat}: packed certificate steps "
+                  f"{pcert['packed'].steps}, DAG levels of A' {levels}")
+            x = op.solve(b, health="strict")
+            resid = op.stats.last_residual
+            x0 = op.solve(b, max_refine=0, health="strict")
+            err0 = float(np.abs(x0 - x_ref).max()) / scale
+            XB = op.solve(B, health="strict")
+            residB = op.stats.last_residual
+            check(resid <= REFINE_TOL and x0.dtype == np.float32 and
+                  err0 <= ORACLE_RTOL and XB.shape == (n, 8) and
+                  residB <= REFINE_TOL,
+                  f"{mat}/{strat}: strict solves: residual {resid:.3e}, "
+                  f"max_refine=0 error {err0:.3e}, batched residual "
+                  f"{residB:.3e}")
+            row = {"case": f"{mat}(1.0)/{strat}", "n": n,
+                   "build_s": build_s, "verify_s": vc["s"],
+                   "verify_calls": vc["calls"],
+                   "certificate": certificate_dict(cert),
+                   "packed_certificate": {
+                       w: (dataclasses.asdict(c) if c is not None else None)
+                       for w, c in pcert.items()},
+                   "dag_levels": levels, "residual": resid,
+                   "err_max_refine0": err0, "residual_batched": residB}
+            rows.append(row)
+            pc = pcert["packed"]
+            pre = pcert["preamble_packed"]
+            log(f"  strict {row['case']:28s} build {build_s:.2f} s, verify "
+                f"{vc['s']:.3f} s ({vc['s'] / build_s:.1%}); certificate "
+                f"steps={cert.steps} levels={cert.levels} critical_path="
+                f"{cert.critical_path} nnz={cert.nnz} flops={cert.flops} "
+                f"padded_flops={cert.padded_flops}; packed steps={pc.steps} "
+                f"(DAG {levels}) tiles={pc.tiles} lanes={pc.lanes} long="
+                f"{pc.long_lanes} far={pc.far_pairs} free={pc.free_rows}; "
+                f"preamble "
+                + (f"steps={pre.steps} tiles={pre.tiles}" if pre else "none")
+                + f"; resid={resid:.2e} err0={err0:.2e} residB={residB:.2e}")
+    # the certificate rides the memory tier: a second strict build is a hit
+    # that verifies nothing
+    L = mats["lung2_like"]
+    TriangularOperator.clear_memory_cache()
+    op1 = TriangularOperator.from_csr(L, tune="no_rewriting",
+                                      health="strict")
+    with verifier_clock() as vc:
+        op2 = TriangularOperator.from_csr(L, tune="no_rewriting",
+                                          health="strict")
+    check(op2.stats.cache_source == "memory" and
+          op2.certificate is op1.certificate and vc["calls"] == {},
+          f"strict cache hit: {op2.stats.cache_source}, same certificate "
+          f"{op2.certificate is op1.certificate}, verifier calls "
+          f"{vc['calls']}")
+    log("  strict memory hit: same certificate object, 0 verifier calls")
+    TriangularOperator.clear_memory_cache()
+    return rows
+
+
+def static_injectors(mats) -> dict:
+    """The four static defects under strict from_csr on the card: each a
+    typed error before any pack or launch.  Then what reorder and duplicate
+    do with the checks off."""
+    from repro_torch.core import faults
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import TriangularOperator
+    L = mats["lung2_like"]
+    res = {}
+    for name, exc, want in STATIC_INJECTORS:
+        packs, launches = dict(K.PACKS), dict(K.LAUNCHES)
+        got = None
+        t0 = time.perf_counter()
+        with getattr(faults, name)() as count:
+            try:
+                TriangularOperator.from_csr(L, tune="avgLevelCost",
+                                            cache=False, health="strict")
+            except Exception as e:      # noqa: BLE001 - judged below
+                got = e
+        secs = time.perf_counter() - t0
+        unchanged = dict(K.PACKS) == packs and dict(K.LAUNCHES) == launches
+        res[name] = {"calls": count["calls"], "seconds": secs,
+                     "raised": type(got).__name__, "error": str(got)[:300],
+                     "check": getattr(got, "check", None),
+                     "step": getattr(got, "step", None),
+                     "lane": getattr(got, "lane", None),
+                     "packs_and_launches_unchanged": unchanged}
+        log(f"  strict + {name}: {type(got).__name__} [{res[name]['check']}]"
+            f" step={res[name]['step']} lane={res[name]['lane']} in "
+            f"{secs:.2f} s, packs and launches unchanged: {unchanged}")
+        check(type(got).__name__ == exc and got.check == want and
+              count["calls"] >= 1 and unchanged and
+              (want not in LOCATED or (got.step >= 0 and got.lane >= 0)),
+              f"{name} under strict: {res[name]}")
+    b = np.random.default_rng(SEED).standard_normal(L.n_rows)
+    x_ref = oracle(L, b)
+    for name in ("reorder_schedule_step", "duplicate_lane_row"):
+        with getattr(faults, name)():
+            try:
+                op = TriangularOperator.from_csr(L, tune="avgLevelCost",
+                                                 cache=False, health="off")
+                x = op.solve(b, max_refine=0, health="off")
+                err = float(np.abs(x - x_ref).max()) / max(
+                    1.0, float(np.abs(x_ref).max()))
+                out = {"outcome": "answer", "finite": bool(
+                    np.isfinite(x).all()), "err_vs_oracle": err}
+            except ValueError as e:
+                out = {"outcome": "ValueError", "error": str(e)[:300]}
+        res[f"{name}_off"] = out
+        log(f"  health='off' + {name}: {out}")
+    return res
+
+
+def static_updates(rng, mats) -> dict:
+    """Ten strict update_values steps on lung2's L (no_rewriting: device
+    refreshes), each step's refreshed words certified; the audit's ms
+    beside unaudited steps'; a poisoned re-bind refused with the operator
+    left on its values."""
+    from repro_torch.analysis import verify as V
+    from repro_torch.core import faults
+    from repro_torch.core.resilience import ScheduleInvariantError
+    from repro_torch.solver import TriangularOperator
+    L = mats["lung2_like"]
+    off = offdiag_mask(L)
+    b = rng.standard_normal(L.n_rows)
+    op = TriangularOperator.from_csr(L, tune="no_rewriting", cache=False,
+                                     health="strict")
+
+    def values(k):
+        data = L.data.copy()
+        data[off] *= 1 + 0.01 * k
+        return L.with_data(data)
+
+    strict_ms, audit_ms, plain_ms, err0 = [], [], [], []
+    for k in range(1, UPDATE_STEPS + 1):
+        Lk = values(k)
+        with verifier_clock() as vc:
+            _, secs = synced_s(lambda: op.update_values(Lk, health="strict"))
+        strict_ms.append(secs * 1e3)
+        audit_ms.append(vc["s"] * 1e3)
+        pc = op._payload.get("packed_certificate")["packed"]
+        check(pc.checks == V.PACKED_VALUE_CHECKS and
+              vc["calls"].get("verify_packed_values", 0) >= 1,
+              f"update {k}: the refreshed words were not certified "
+              f"({pc.checks}, {vc['calls']})")
+        x_ref = oracle(Lk, b)
+        err0.append(float(np.abs(op.solve(b, max_refine=0) - x_ref).max())
+                    / max(1.0, float(np.abs(x_ref).max())))
+        check(err0[-1] <= ORACLE_RTOL, f"update {k}: error {err0[-1]:.3e}")
+    for k in range(UPDATE_STEPS + 1, UPDATE_STEPS + 4):
+        Lk = values(k)
+        _, secs = synced_s(lambda: op.update_values(Lk))
+        plain_ms.append(secs * 1e3)
+    # a poisoned re-bind: refused, the operator keeps the last values
+    Lk = values(UPDATE_STEPS + 3)
+    x_ref = oracle(Lk, b)
+    got = None
+    with faults.corrupt_values_payload() as count:
+        try:
+            op.update_values(values(50), health="strict")
+        except ScheduleInvariantError as e:
+            got = e
+    x0 = op.solve(b, max_refine=0)
+    err = float(np.abs(x0 - x_ref).max()) / max(1.0,
+                                                float(np.abs(x_ref).max()))
+    x = op.solve(b)
+    check(got is not None and got.check in ("finite", "dinv") and
+          count["calls"] >= 1 and err <= ORACLE_RTOL and
+          op.stats.last_residual <= REFINE_TOL,
+          f"poisoned update: raised {got!r}, then error {err:.3e}, "
+          f"residual {op.stats.last_residual:.3e}")
+    res = {"strict_ms": strict_ms, "audit_ms": audit_ms,
+           "unaudited_ms": plain_ms,
+           "strict_ms_median": float(np.median(strict_ms)),
+           "audit_ms_median": float(np.median(audit_ms)),
+           "unaudited_ms_median": float(np.median(plain_ms)),
+           "err_max_refine0": max(err0),
+           "poisoned": {"check": got.check, "error": str(got)[:300],
+                        "err_after": err}}
+    log(f"  strict update_values lung2_like(1.0)/no_rewriting: median "
+        f"{res['strict_ms_median']:.1f} ms, of which the audit "
+        f"{res['audit_ms_median']:.1f} ms; unaudited step "
+        f"{res['unaudited_ms_median']:.1f} ms; err0={max(err0):.2e}; "
+        f"poisoned re-bind -> [{got.check}], then err0 {err:.2e}")
+    return res
+
+
+def static_profiling(rng, mats) -> dict:
+    """ProfilingEngine over the "cuda" engine on lung2 no_rewriting: K1's
+    stamped form serves the solve and leaves its profile."""
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.obs.profile import ProfilingEngine
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.solver.engines import get_engine
+    L = mats["lung2_like"]
+    b = rng.standard_normal(L.n_rows)
+    op = TriangularOperator.from_csr(L, tune="no_rewriting", cache=False)
+    x_serve = op.solve(b, max_refine=0)
+    eng = ProfilingEngine(get_engine("cuda"))
+    before = K.LAUNCHES["sptrsv_groups_stamped"]
+    x = op.solve(b, max_refine=0, engine=eng)
+    stamped = K.LAUNCHES["sptrsv_groups_stamped"] - before
+    x_ref = oracle(L, b)
+    scale = max(1.0, float(np.abs(x_ref).max()))
+    diff = float(np.abs(x.astype(np.float64) - x_serve).max()) / scale
+    err = float(np.abs(x - x_ref).max()) / scale
+    prof = eng.last_profile
+    steps = op._staged().packed().num_steps
+    # a batched right side goes through the stamped form column by column
+    B = rng.standard_normal((L.n_rows, 2))
+    XB_serve = op.solve(B, max_refine=0)
+    before_b = K.LAUNCHES["sptrsv_groups_stamped"]
+    XB = op.solve(B, max_refine=0, engine=eng)
+    diff_b = float(np.abs(np.asarray(XB, np.float64) - XB_serve).max()) / \
+        max(1.0, float(np.abs(XB_serve).max()))
+    res = {"rel_diff_vs_serving": diff, "err_vs_oracle": err,
+           "profile_steps": prof.num_steps, "packed_steps": steps,
+           "stamped_launches": stamped, "event_ms": prof.event_ms,
+           "stamped_ms": prof.stamped_ms, "launch_us": prof.launch_us,
+           "batched_rel_diff_vs_serving": diff_b,
+           "batched_stamped_launches":
+               K.LAUNCHES["sptrsv_groups_stamped"] - before_b}
+    log(f"  ProfilingEngine(cuda) lung2_like(1.0)/no_rewriting: diff vs "
+        f"serving K1 {diff:.2e}, err {err:.2e}, profile steps "
+        f"{prof.num_steps} (packed {steps}), stamped launches {stamped}, "
+        f"event {prof.event_ms} ms, stamps {prof.stamped_ms} ms; B (n, 2) "
+        f"diff vs serving K2 {diff_b:.2e}, stamped launches "
+        f"{res['batched_stamped_launches']}")
+    check(diff <= KERNEL_RTOL and err <= ORACLE_RTOL and
+          prof.num_steps == steps and stamped > 0 and
+          XB.shape == B.shape and diff_b <= KERNEL_RTOL and
+          res["batched_stamped_launches"] >= 2,
+          f"ProfilingEngine: {res}")
+    return res
+
+
+def phase_static(rng) -> tuple:
+    """Static verification on the card at full size (module doc, phase
+    9).  Returns (result, launch counts of this path)."""
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.sparse import generators
+    mats = {m: getattr(generators, m)(1.0)
+            for m in ("lung2_like", "torso2_like")}
+    TriangularOperator.clear_memory_cache()
+    K.reset_launch_counts()
+    res = {"builds": static_builds(rng, mats),
+           "injectors": static_injectors(mats),
+           "updates": static_updates(rng, mats),
+           "profiling_engine": static_profiling(rng, mats)}
+    counts = dict(K.LAUNCHES)
+    log(f"  launches on the static-verification path: {counts}")
+    check(counts["sptrsv_groups"] > 0 and counts["sptrsv_groups_multi"] > 0
+          and counts["sptrsv_groups_stamped"] > 0,
+          f"a kernel of the static-verification path was never launched: "
+          f"{counts}")
+    check(counts["plain"] == 0,
+          f"the plain version ran on the static-verification path: {counts}")
+    return res, counts
+
+
 def study_cases() -> list:
     """(label, schedule) of lung2's and torso2's L and IC(0) L^T at full
     scale: the forward and backward sweeps of the main paths."""
@@ -2057,7 +2418,7 @@ def phase_ab(dirs: list, rng) -> list:
 def kernels_line(krows: list, *path_counts: dict,
                  served_err: dict | None = None) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the main paths (phases 4 to 8)."""
+    launches summed over the main paths (phases 4 to 9)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -2161,8 +2522,13 @@ def run(args, tuned_dir: str) -> int:
     serve, serve_counts = phase_serving(rng)
     serve["seconds"] = time.perf_counter() - t8
     log_serving(serve)
+    log("== 9. static verification at full size")
+    t9 = time.perf_counter()
+    static, static_counts = phase_static(rng)
+    static["seconds"] = time.perf_counter() - t9
+    log(f"  phase 9 took {static['seconds']:.1f} s")
     line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts,
-                        serve_counts,
+                        serve_counts, static_counts,
                         served_err=serve["kernels_vs_plain_max_abs_err"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2172,7 +2538,8 @@ def run(args, tuned_dir: str) -> int:
          "krylov_launches": pcg_counts, "tuner": tuner,
          "tuner_launches": tune_counts, "life_cycle": life,
          "life_cycle_launches": life_counts, "serving": serve,
-         "serving_launches": serve_counts, "kernels_line": line,
+         "serving_launches": serve_counts, "static": static,
+         "static_launches": static_counts, "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(card["nvidia_smi"])

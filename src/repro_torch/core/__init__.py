@@ -14,4 +14,5 @@ from .portfolio import CostModel as TuningCostModel
 from .resilience import (CacheQuarantineWarning, HealthPolicy,
                          NumericalHealthError, PatternMismatchError,
                          ResilienceError, ResilienceWarning, RetryPolicy,
-                         SolveGuard, resolve_health_policy)
+                         ScheduleInvariantError, SolveGuard,
+                         TransformInvariantError, resolve_health_policy)

@@ -3,8 +3,10 @@ the `SolveGuard` that enforces it.
 
 Copy of the parts of `repro.core.resilience` that the port's operator
 and factorizations use.  The port's solve never repairs and never walks a
-fallback chain: an unhealthy solve raises (the repair/fallback actions and
-engine fallback chains are still to be ported, see ROADMAP.md).  A corrupt
+fallback chain: an unhealthy solve raises.  Not ported yet (ROADMAP.md,
+queue 1 item 2): the policy's `on_nonfinite` and `max_repair_rounds`, the
+"repair"/"fallback" levels, `EngineFallbackError`,
+`EngineFallbackWarning` and `HealthRepairWarning`.  A corrupt
 or stale disk-cache entry is quarantined with a `CacheQuarantineWarning`
 and the operator rebuilt on the host.  `RetryPolicy` is the geometric-backoff ladder of the
 diagonal-shift retries in `precond.factorize`.
@@ -19,9 +21,21 @@ Error taxonomy
     │                            matrix whose sparsity pattern differs from
     │                            the frozen one; carries `.where` and
     │                            `.detail`
-    └── AdmissionError           the solve service rejected a request (a
-                                 tenant's in-flight cap); carries
-                                 `.tenant`, `.depth`, `.limit`
+    ├── AdmissionError           the solve service rejected a request (a
+    │                            tenant's in-flight cap); carries
+    │                            `.tenant`, `.depth`, `.limit`
+    ├── ScheduleInvariantError   a compiled LevelSchedule, or the SpTRSV
+    │                            kernel's packed form of one, failed static
+    │                            verification (`repro_torch.analysis.verify`):
+    │                            a scheduling race, a broken lane/row
+    │                            bijection, an out-of-bounds index —
+    │                            carries `.check`, `.step`, `.lane`,
+    │                            `.group`
+    └── TransformInvariantError  a TransformedSystem / ReplayPlan failed the
+                                 transform audit (triangularity, level
+                                 monotonicity, fill accounting, replay
+                                 index bounds); carries `.check` and
+                                 `.where`
 
 Warning taxonomy
 ================
@@ -38,7 +52,9 @@ a named level (`"off" | "on" | "strict"`), or `None` for the
 `REPRO_HEALTH_CHECKS` environment default (same names; unset means
 `"on"`).  `"on"` checks input/output finiteness and raises typed errors;
 `"strict"` additionally checks the relative residual against the original
-matrix.
+matrix and statically certifies compiled schedules, and the SpTRSV
+kernel's packed forms of them, via `repro_torch.analysis.verify` before
+anything launches.
 """
 from __future__ import annotations
 
@@ -48,7 +64,9 @@ import os
 import numpy as np
 
 __all__ = ["ResilienceError", "NumericalHealthError", "PatternMismatchError",
-           "AdmissionError", "ResilienceWarning", "CacheQuarantineWarning",
+           "AdmissionError", "ScheduleInvariantError",
+           "TransformInvariantError", "ResilienceWarning",
+           "CacheQuarantineWarning",
            "TunerFailureWarning", "HealthPolicy",
            "SolveGuard", "resolve_health_policy", "RetryPolicy"]
 
@@ -112,6 +130,66 @@ class AdmissionError(ResilienceError):
         super().__init__(f"{message}{tail}")
 
 
+class ScheduleInvariantError(ResilienceError):
+    """A compiled schedule failed static verification.
+
+    Raised by `repro_torch.analysis.verify.verify_level_schedule` (and
+    through it by `validate_schedule` and strict-mode operator builds) when
+    a `LevelSchedule` violates a structural invariant: a lane reads a row
+    or carry segment that is not finalized at a strictly earlier step, a
+    row is finalized more or fewer than exactly once, an ELL index or carry
+    slot is out of bounds, or the packed nnz disagrees with the matrix.
+    `verify_packed_schedule` / `verify_packed_values` raise it for the
+    SpTRSV kernel's packed form of a schedule.  The schedule must never
+    execute — a violating schedule can return a *finite but wrong* answer.
+
+    check: the invariant that failed (e.g. "race", "bijection",
+           "index-bounds", "carry-order", "nnz", "dtype", "collectives").
+    step:  the first offending step index (-1 when not step-local).
+    lane:  the first offending lane index within that step (-1 when not
+           lane-local).
+    group: the width-group index the lane belongs to (-1 when global).
+    """
+
+    def __init__(self, message: str, *, check: str, step: int = -1,
+                 lane: int = -1, group: int = -1, where: str = ""):
+        self.check = check
+        self.step = int(step)
+        self.lane = int(lane)
+        self.group = int(group)
+        self.where = where
+        loc = ""
+        if step >= 0:
+            loc = f" at step {step}"
+            if lane >= 0:
+                loc += f", lane {lane}"
+            if group >= 0:
+                loc += f" (group {group})"
+        head = f"{where}: " if where else ""
+        super().__init__(f"{head}[{check}] {message}{loc}")
+
+
+class TransformInvariantError(ResilienceError):
+    """A TransformedSystem or its ReplayPlan failed the transform audit.
+
+    Raised by `repro_torch.analysis.verify.audit_transformed_system`: the
+    rewritten dependency matrix is not strictly lower triangular, a level
+    assignment is non-monotone along an edge, the fill accounting disagrees
+    with `TransformMetrics`, or a replay-plan commit indexes out of bounds.
+    Replaying or scheduling such a system would produce a finite wrong
+    answer, so the audit is an eager, typed error.
+
+    check: the invariant that failed (e.g. "triangularity",
+           "level-monotonicity", "fill-accounting", "replay-bounds").
+    """
+
+    def __init__(self, message: str, *, check: str, where: str = ""):
+        self.check = check
+        self.where = where
+        head = f"{where}: " if where else ""
+        super().__init__(f"{head}[{check}] {message}")
+
+
 class ResilienceWarning(UserWarning):
     """Base class for resilience-layer warnings (downgrades are loud)."""
 
@@ -147,12 +225,23 @@ class HealthPolicy:
     residual_tol:   threshold for the residual check.  Looser than the
                     refinement tolerance: it flags wrong answers, not
                     last-ulp noise.
+    verify_schedule: statically verify compiled schedules and transform
+                    plans (`repro_torch.analysis.verify`) before they serve
+                    a solve: operator builds certify the schedule and the
+                    SpTRSV kernel's packed forms of it once, before the
+                    first pack is made for a launch and before the disk
+                    store (cached artifacts keep their certificates, so
+                    cache hits re-verify nothing); value updates re-audit
+                    the numeric payload and the refreshed packed words.
+                    Violations raise ScheduleInvariantError /
+                    TransformInvariantError.
     """
 
     check_inputs: bool = True
     check_outputs: bool = True
     residual_check: bool = False
     residual_tol: float = 1e-5
+    verify_schedule: bool = False
 
     @classmethod
     def off(cls) -> "HealthPolicy":
@@ -161,8 +250,9 @@ class HealthPolicy:
 
     @classmethod
     def strict(cls) -> "HealthPolicy":
-        """Finiteness + residual, violations raise."""
-        return cls(residual_check=True)
+        """Finiteness + residual + static schedule verification,
+        violations raise."""
+        return cls(residual_check=True, verify_schedule=True)
 
 
 _NAMED_POLICIES = {

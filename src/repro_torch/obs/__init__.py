@@ -20,7 +20,8 @@ Quick trace of a solve::
 
 `profile` is loaded lazily: it needs `repro_torch.solver`, which itself
 traces through this package — eager import here would be a cycle.
-Not ported yet: `ProfilingEngine` (ROADMAP.md, queue 1).
+`profile.ProfilingEngine` wraps an engine and leaves a per-step profile
+of every solve it serves.
 """
 from __future__ import annotations
 

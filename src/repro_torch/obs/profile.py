@@ -25,10 +25,17 @@ fits them to one.  Two engines, two methods:
   time to enqueue a served solve, the card running behind, over its
   launches), which `calibrate` turns into the per-launch charge.
 
-Clocks are injected (`clock=time.perf_counter` by default) for the CPU
-method.  Not ported yet: `ProfilingEngine`, the sharded path's collective
-split (ROADMAP.md, queue 1: observability, sharded solves) and the
-`_STEP_FAULT` seam of the fault injectors (resilience).
+`ProfilingEngine` wraps an engine with this loop behind the standard
+Engine protocol (opt-in: a measurement tool, not a serving path), exposing
+`last_profile` after each solve: with no base engine it steps through the
+plain torch loop; over the "cuda" engine every solve it serves is one run
+of K1's stamped form.
+
+Clocks are injected (`clock=time.perf_counter` by default) for both
+methods: the CPU's step times and the card's host time per launch.  Not
+ported yet: the sharded path's collective split (ROADMAP.md, queue 1:
+sharded solves) and the `_STEP_FAULT` seam of the fault injectors
+(resilience).
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ import torch
 from .metrics import DEFAULT_MS_BUCKETS
 
 __all__ = ["ScheduleProfile", "profile_schedule", "profile_operator",
-           "merge_profiles", "DEFAULT_MS_BUCKETS"]
+           "merge_profiles", "ProfilingEngine", "DEFAULT_MS_BUCKETS"]
 
 
 @dataclasses.dataclass
@@ -219,7 +226,7 @@ def _profile_stepwise(ds, c: torch.Tensor, *, reps, warmup, clock):
     return prof, x
 
 
-def _profile_stamped(ds, c: torch.Tensor, *, reps, warmup, engine):
+def _profile_stamped(ds, c: torch.Tensor, *, reps, warmup, engine, clock):
     """K1's stamped form on the card: (ScheduleProfile, x)."""
     from ..kernels import sptrsv_level as K
     from ..solver.levelset import pad_rhs
@@ -259,7 +266,8 @@ def _profile_stamped(ds, c: torch.Tensor, *, reps, warmup, engine):
             event_ms, x = tile_ms, run.x
             stamped_ms = float(spans.sum())
             mhz = cycles / tile_ms / 1e3 if tile_ms > 0 else 0.0
-    launch_us = _launch_us(engine.compile(ds), c, packed.launches)
+    launch_us = _launch_us(engine.compile(ds), c, packed.launches,
+                           clock=clock)
     rows, deps = packed.step_rows.copy(), packed.step_deps.copy()
     if packed.num_free:
         rows[0] = deps[0] = 0   # the free pass: a launch, not rows
@@ -278,17 +286,18 @@ def _profile_stamped(ds, c: torch.Tensor, *, reps, warmup, engine):
     return prof, x
 
 
-def _launch_us(fn, c: torch.Tensor, launches: int, calls: int = 20) \
-        -> float:
+def _launch_us(fn, c: torch.Tensor, launches: int, calls: int = 20,
+               clock=time.perf_counter) -> float:
     """Host time per launch of the served solve `fn(c)`: the host's time
-    to enqueue `calls` calls back to back (the card runs behind it, so no
-    call waits for the device), per call, over the call's launches."""
+    (by `clock`, in seconds) to enqueue `calls` calls back to back (the
+    card runs behind it, so no call waits for the device), per call, over
+    the call's launches."""
     fn(c)
     torch.cuda.synchronize(c.device)
-    t0 = time.perf_counter()
+    t0 = clock()
     for _ in range(calls):
         fn(c)
-    host = (time.perf_counter() - t0) / calls
+    host = (clock() - t0) / calls
     torch.cuda.synchronize(c.device)
     return host * 1e6 / max(1, launches)
 
@@ -322,7 +331,7 @@ def _profile_and_solve(sched, c, *, reps, warmup, clock, device, engine):
                          else c, device=ds.device).to(torch_dtype(ds.dtype))
     if eng.name == "cuda":
         return _profile_stamped(ds, ct, reps=reps, warmup=warmup,
-                                engine=eng)
+                                engine=eng, clock=clock)
     if eng.name == "torch":
         return _profile_stepwise(ds, ct, reps=reps, warmup=warmup,
                                  clock=clock)
@@ -342,3 +351,64 @@ def profile_operator(op, b=None, *, reps: int = 2, warmup: int = 1,
     c = op._ts.preamble(v)
     return profile_schedule(op._staged(), c, reps=reps, warmup=warmup,
                             clock=clock, engine=op._engine)
+
+
+from ..solver.engines import Engine as _EngineBase  # noqa: E402  (the
+# engines module imports nothing of obs, so this cannot re-enter it)
+
+
+class ProfilingEngine(_EngineBase):
+    """Engine-protocol wrapper running the per-step profiling loop.
+
+    Opt-in measurement tool: do not register it as a serving default.
+    `compile(dsched)` returns a solve fn whose results are exact (the
+    profiled execution IS the solve); after each call `last_profile` holds
+    the fresh ScheduleProfile.  `base=None` profiles step by step through
+    the plain torch loop; `base` the "cuda" engine runs every solve it
+    serves as K1's stamped form (`sptrsv_groups_stamped`), which takes one
+    right-hand side: a batched one (n, R) is solved column by column and
+    `last_profile` is the last column's.  Availability, cache identity, the tuner's sweep shape and
+    the devices it runs on are the base's.
+    """
+
+    def __init__(self, base=None, *, reps: int = 1, warmup: int = 1,
+                 clock=time.perf_counter, name: str | None = None):
+        self.base = base
+        self.reps = int(reps)
+        self.warmup = int(warmup)
+        self.clock = clock
+        self.name = name or f"profiled[{base.name if base else 'stepwise'}]"
+        self.last_profile = None
+        if base is not None:
+            self.supports_batched_rhs = base.supports_batched_rhs
+            self.dtypes = base.dtypes
+            self.device_types = base.device_types
+
+    def available(self) -> bool:
+        return self.base.available() if self.base is not None else True
+
+    def cache_token(self) -> str:
+        if self.base is not None:
+            return f"{self.name}:{self.base.cache_token()}"
+        return self.name
+
+    def sweep_shape(self, ts, sched) -> dict:
+        if self.base is not None:
+            return self.base.sweep_shape(ts, sched)
+        return super().sweep_shape(ts, sched)
+
+    def compile(self, dsched):
+        self._require_dtype(dsched)
+        engine = self.base if self.base is not None else "torch"
+
+        def fn(cv):
+            if self.base is not None and cv.ndim == 2:
+                return torch.stack([fn(cv[:, r]) for r in
+                                    range(cv.shape[1])], 1)
+            prof, x = _profile_and_solve(
+                dsched, cv, reps=self.reps, warmup=self.warmup,
+                clock=self.clock, device=None, engine=engine)
+            self.last_profile = prof
+            return x
+
+        return fn

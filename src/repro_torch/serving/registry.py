@@ -24,10 +24,14 @@ orientation) and enforces the serving tier's core latency contract:
   the float32 zero set moved), enqueued on the stream before the swap is
   published, so every later solve reads the refreshed tiles.  The entry
   is now **hot**.
-* a tuner failure (any exception out of the background build) marks the
+* a tuner failure (any exception out of the background build, or out of
+  the re-bind of the tuned operator to the entry's latest values before
+  the swap, e.g. a replay whose fill leaves the frozen pattern) marks the
   entry **degraded**: the untuned operator keeps serving, a
-  `TunerFailureWarning` is emitted, and the error is retained on the
-  entry for the stats plane.  Tuning never poisons the request path.
+  `TunerFailureWarning` is emitted, the registry counts a tuner failure,
+  and the error is retained on the entry for the stats plane.  Tuning
+  never poisons the request path.  (The reference lets a failed re-bind
+  escape the tune job and leaves the entry "warming".)
 
 Value-only refreshes (same pattern, new numeric payload — the
 time-stepping workload) do not re-admit: `entry.note_values`
@@ -291,27 +295,22 @@ class OperatorRegistry:
                 # through the untuned operator while the portfolio searches
                 tuned = self._build(L, self._tune, entry.ekey)
             except Exception as exc:     # noqa: BLE001 - any tuner blow-up
-                with entry.lock:
-                    entry.state = "degraded"
-                    entry.tune_error = f"{type(exc).__name__}: {exc}"
-                self._tuner_failures.inc()
-                tsp.set(outcome="degraded")
-                _obs.event("registry.tune_failed", pattern=pat,
-                           error=type(exc).__name__)
-                warnings.warn(
-                    f"background tuning failed for {pat}; serving "
-                    f"continues on the untuned operator ({exc})",
-                    TunerFailureWarning, stacklevel=2)
+                self._tune_failed(entry, exc, tsp, pat)
                 return
             with entry.lock:
-                if entry.bound_fp and \
-                        entry.bound_fp != value_fingerprint(tuned._L):
-                    # values drifted while tuning ran: re-bind the tuned
-                    # operator to the entry's CURRENT payload before it is
-                    # visible to anyone — the swap must not roll numerics
-                    # back
-                    tuned.update_values(entry._values[entry.bound_fp])
-                    entry.value_rebinds += 1
+                try:
+                    if entry.bound_fp and \
+                            entry.bound_fp != value_fingerprint(tuned._L):
+                        # values drifted while tuning ran: re-bind the tuned
+                        # operator to the entry's CURRENT payload before it
+                        # is visible to anyone — the swap must not roll
+                        # numerics back
+                        tuned.update_values(entry._values[entry.bound_fp])
+                        entry.value_rebinds += 1
+                except Exception as exc:  # noqa: BLE001 - a re-bind the
+                    # tuned transformation cannot follow: not swapped
+                    self._tune_failed(entry, exc, tsp, pat)
+                    return
                 entry.untuned_solves = entry.op.stats.solves \
                     if entry.op is not None else 0
                 entry.op = tuned
@@ -320,6 +319,23 @@ class OperatorRegistry:
             tsp.set(outcome="hot_swap")
             _obs.event("registry.hot_swap", pattern=pat,
                        strategy=getattr(tuned, "strategy", None))
+
+    def _tune_failed(self, entry: OperatorEntry, exc: Exception, tsp,
+                     pat: str) -> None:
+        """A tune, or the re-bind of its operator to the entry's current
+        values, raised: the entry is degraded and keeps serving its
+        untuned operator."""
+        with entry.lock:
+            entry.state = "degraded"
+            entry.tune_error = f"{type(exc).__name__}: {exc}"
+        self._tuner_failures.inc()
+        tsp.set(outcome="degraded")
+        _obs.event("registry.tune_failed", pattern=pat,
+                   error=type(exc).__name__)
+        warnings.warn(
+            f"background tuning failed for {pat}; serving continues on "
+            f"the untuned operator ({exc})", TunerFailureWarning,
+            stacklevel=3)
 
     def wait_warm(self, timeout: float | None = None) -> bool:
         """Block until every scheduled tune has finished (swapped or

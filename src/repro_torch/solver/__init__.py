@@ -1,7 +1,8 @@
 from .reference import solve_csr_seq, solve_transformed_seq, solve_dense
 from .schedule import (LevelSchedule, WidthGroup, build_schedule,
                        repack_schedule_values, schedule_for_csr,
-                       schedule_for_preamble, schedule_for_transformed)
+                       schedule_for_preamble, schedule_for_transformed,
+                       validate_schedule)
 from .levelset import (DeviceSchedule, resolve_device, schedule_from_numpy,
                        solve_levels, to_device)
 from .engines import (CudaEngine, Engine, TorchEngine, get_engine,

@@ -54,6 +54,21 @@ or (under `health="strict"`) a large residual raises
 `NumericalHealthError`.  Nothing is repaired, and no engine stands in for
 a failing one.
 
+Static verification (`repro_torch.analysis`): under a health policy with
+`verify_schedule` (`health="strict"`), `from_csr` audits the transformed
+system and certifies the compiled schedule once per built payload, before
+anything is packed, staged or stored, and on a card certifies the SpTRSV
+kernel's packed forms of the main and preamble schedules (what the kernel
+reads: tiles, far pairs, free pass) before the first launch; the
+`ScheduleCertificate` and the `PackedCertificate`s ride the payload into
+both cache tiers, so a hit that carries them re-verifies nothing.
+`update_values(..., health="strict")` re-audits what a value re-bind
+changed (the replayed transform, the schedule's values, and on the card
+the refreshed packed words) before the operator mutates or anything is
+cached.  A failed certification raises `ScheduleInvariantError` /
+`TransformInvariantError`; nothing is launched from a defective artifact.
+`op.certificate` and `op.verify()` expose it.
+
 `op.stats` is a view over a metrics registry (`repro_torch.obs`), and
 the build, the value update, the engine compile and the solve open the
 reference's spans (`operator.tune`, `operator.update_values`,
@@ -62,8 +77,7 @@ reference's spans (`operator.tune`, `operator.update_values`,
 
 Not ported yet (ROADMAP.md, queue 1): `mesh=`, engine fallback chains
 (and their `engine.solve`/`engine.fallback` spans), health repair and the
-host-reference escape hatch, and the strict health level's schedule
-verification (at build and on `update_values`).
+host-reference escape hatch.
 """
 from __future__ import annotations
 
@@ -346,6 +360,66 @@ def _payload_packed(payload: dict, which: str):
     return packed
 
 
+def _certify(payload: dict, device, where: str, *, base=None,
+             refreshed=None) -> None:
+    """Everything strict health certifies in a payload, in one place; it
+    raises ScheduleInvariantError / TransformInvariantError.
+
+    The host side: a payload re-bound to new values from `base` gets the
+    value re-audit (the replayed transform, and the schedule's values
+    against its A' and diagonal; the structure is the base's), as the
+    reference's update_values does; any other that
+    carries no certificate gets the full one, once
+    (`verify_operator_payload`).  `refreshed` given means
+    the re-bind that made the payload ran the host side before it
+    refreshed its packed forms, so it is not repeated.
+
+    On a card (`device` None: the host side only) the packed forms the
+    kernel reads, main and preamble, kept under
+    payload["packed_certificate"] (None for an identity preamble).  A form
+    that a re-bind refreshed on the device (`refreshed[which]` False) from
+    a certified form of `base` (its structure and value map certified in
+    full, at its build or at the re-bind it came from) has its rewritten
+    words read back (`verify_packed_values`); every other one without a certificate is
+    packed where the payload has none and certified in full, the
+    preamble's LevelSchedule (unit diagonal) before its pack."""
+    from ..analysis import verify as V
+    if refreshed is None:
+        if base is not None:
+            V.audit_transformed_system(payload["ts"], where=where)
+            V.verify_schedule_values(payload["sched"], payload["ts"].A,
+                                     payload["ts"].diag, where=where)
+        elif "certificate" not in payload:
+            V.verify_operator_payload(payload, where=where)
+    if device is None or device.type != "cuda":
+        return
+    certs = dict(payload.get("packed_certificate") or {})
+    base_certs = (base or {}).get("packed_certificate") or {}
+    for which, again in (refreshed or {}).items():
+        if again or base_certs.get(which) is None:
+            certs.pop(which, None)
+        else:
+            sched = payload["sched"] if which == "packed" else \
+                payload["preamble"][0]
+            certs[which] = V.verify_packed_values(payload[which], sched,
+                                                  where=where)
+    for which in ("packed", "preamble_packed"):
+        if which in certs:
+            continue
+        if which == "packed":
+            sched = payload["sched"]
+        else:
+            sched = _payload_preamble(payload)[0]
+            if sched is None:
+                certs[which] = None
+                continue
+            V.verify_level_schedule(sched, None, np.ones(sched.n),
+                                    where=where)
+        certs[which] = V.verify_packed_schedule(
+            _payload_packed(payload, which), sched, where=where)
+    payload["packed_certificate"] = certs
+
+
 class TriangularOperator:
     """Compiled triangular-solve operator for one matrix (see module doc)."""
 
@@ -428,7 +502,8 @@ class TriangularOperator:
                  max_deps: int = 16, dtype=np.float32, engine=None,
                  device=None, cache: bool = True, cache_dir=None,
                  portfolio=None, cost_model=None,
-                 measure_top_k: int = 0) -> "TriangularOperator":
+                 measure_top_k: int = 0,
+                 health=None) -> "TriangularOperator":
         """Build (or load) the operator for L.
 
         side/transpose: which sweep this operator performs (module doc).
@@ -455,6 +530,15 @@ class TriangularOperator:
                 cost_model/measure_top_k are forwarded when constructing
                 the default one.  Its configuration is not part of the
                 cache key, so passing one disables caching for that build.
+        health: health policy spec (same forms as solve()'s `health=`).
+                Under a policy with `verify_schedule` (the "strict" level),
+                the static verifier certifies the compiled artifact ONCE
+                per built payload — the `ScheduleCertificate` rides the
+                cached payload, so cache hits skip re-verification — and
+                on a card also the SpTRSV kernel's packed forms of it,
+                before the first pack for a launch and before the disk
+                store.  Not part of the cache key: verifying does not
+                change the artifact.
 
         With tune="auto" the engine is part of the cache key: it says what
         a step costs (`Engine.sweep_shape`), so two engines may pick
@@ -463,6 +547,7 @@ class TriangularOperator:
         import dataclasses as _dc
         from ..core.portfolio import (StrategyPortfolio,
                                       default_cost_model_for, make_strategy)
+        from ..core.resilience import resolve_health_policy
         from ..core.strategies import strategy_label
         from ..core.transform import transform
         from .engines import resolve_engine
@@ -496,8 +581,15 @@ class TriangularOperator:
                         "measure_top_k": measure_top_k}
         pattern_key = cls._pattern_cache_key(L, cfg)
         key = f"{pattern_key}-{value_fingerprint(L)}"
+        strict = resolve_health_policy(health).verify_schedule
+        where = f"TriangularOperator.from_csr(n={L.n_rows})"
 
         def _finish(payload, source):
+            if strict:
+                # a hit without its certificates (built without strict
+                # health, or an older disk entry) is certified now, before
+                # the card packs or launches anything from it
+                _certify(payload, dev, where)
             op = cls(L, payload, cache_source=source, device=dev, engine=eng)
             op._build_kwargs = dict(build_kwargs, tune=tune)
             if dev.type == "cuda":
@@ -522,8 +614,13 @@ class TriangularOperator:
             if base is None:
                 base = cls._disk_load_pattern(pattern_key, cache_dir)
             if base is not None:
-                payload = cls._try_derive_payload(base, L)
+                # under strict health the re-bound schedule is certified
+                # before its packed forms are refreshed, and they after
+                payload = cls._try_derive_payload(base, L, certify=strict,
+                                                  where=where)
                 if payload is not None:
+                    if strict:
+                        _certify(payload, dev, where)
                     cls._memory_put(key, payload)
                     cls._disk_store(key, payload, cache_dir)
                     return _finish(payload, "pattern")
@@ -552,7 +649,13 @@ class TriangularOperator:
                    "sched": sched, "report": report, "config": cfg,
                    "reversed": reversed_,
                    "tune_ms": (time.perf_counter() - t0) * 1e3}
-        if dev.type == "cuda":
+        if strict:
+            # certified BEFORE anything is packed or persisted: a defective
+            # schedule raises a typed error with no pack and no launch, and
+            # the certificates ride the disk entry, so _finish has nothing
+            # to do; on a card this packs and certifies the packed forms
+            _certify(payload, dev, where)
+        elif dev.type == "cuda":
             # packed before the disk store, so that the entry carries the
             # packed forms and a later hit on a card packs nothing
             for which in ("packed", "preamble_packed"):
@@ -573,9 +676,12 @@ class TriangularOperator:
 
     # -- pattern-frozen value updates -----------------------------------------
     @classmethod
-    def _derive_payload(cls, base: dict, L_new: CSR) -> tuple:
+    def _derive_payload(cls, base: dict, L_new: CSR, *, certify=False,
+                        where="TriangularOperator.update_values") -> tuple:
         """Re-bind an equal-pattern payload to new numeric values:
-        (payload, repacks).
+        (payload, repacked), `repacked` mapping each packed form the
+        payload holds ("packed", "preamble_packed") to whether it was
+        packed anew.
 
         Reuses everything structure-derived from `base` — level analysis,
         the winning strategy's transformation (replayed numerically via its
@@ -586,6 +692,9 @@ class TriangularOperator:
         those.  Raises PatternMismatchError if the new values make the
         replayed transformation's pattern drift (exact cancellation
         creating/removing fill), ValueError if `base` predates the plans.
+        With `certify` (strict health) the host side of `_certify` runs
+        on the re-bound transform and schedules, at `where`, before any
+        packed form is refreshed or packed anew; it raises.
         The new payload starts with no staged state of its own.
         """
         from ..core.transform import replay_transform
@@ -624,22 +733,25 @@ class TriangularOperator:
                 payload["preamble"] = schedule_for_preamble(
                     ts_new, chunk=cfg["chunk"], max_deps=cfg["max_deps"],
                     dtype=np.dtype(cfg["dtype"]))
-        repacks = 0
+        if certify:
+            _certify(payload, None, where, base=base)
+        repacked = {}
         for which, sched in refresh.items():
             if base.get(which) is not None:
-                payload[which], repacked = refresh_packed_values(
+                payload[which], repacked[which] = refresh_packed_values(
                     base[which], sched)
-                repacks += int(repacked)
-        return payload, repacks
+        return payload, repacked
 
     @classmethod
-    def _try_derive_payload(cls, base: dict, L_new: CSR) -> dict | None:
+    def _try_derive_payload(cls, base: dict, L_new: CSR, **certify
+                            ) -> dict | None:
         """_derive_payload for opportunistic from_csr use: a pattern drift
         or a pre-plan payload means "can't fast-path", not an error — the
-        caller falls through to a full build."""
+        caller falls through to a full build.  A failed certification
+        raises."""
         from ..core.resilience import PatternMismatchError
         try:
-            return cls._derive_payload(base, L_new)[0]
+            return cls._derive_payload(base, L_new, **certify)[0]
         except (PatternMismatchError, ValueError):
             return None
 
@@ -660,7 +772,14 @@ class TriangularOperator:
         pattern differs from the frozen one raises PatternMismatchError
         (rebuild with from_csr instead); non-finite values raise
         NumericalHealthError under any health policy that checks inputs
-        (`health=` accepts the same specs as solve()).
+        (`health=` accepts the same specs as solve()).  Under a policy with
+        `verify_schedule` ("strict"), the replayed transform is audited and
+        the schedule's values re-verified before any packed form is
+        refreshed, and on the card each refreshed packed form's rewritten
+        words are read back and checked (`verify_packed_values`; a form
+        packed anew, or a cache hit's uncertified one, is certified in
+        full), all before the operator mutates or anything is cached; a
+        violation raises ScheduleInvariantError / TransformInvariantError.
         """
         from ..core.resilience import (NumericalHealthError,
                                        PatternMismatchError,
@@ -690,7 +809,7 @@ class TriangularOperator:
             cache_dir = self._build_kwargs.get("cache_dir")
             key = (f"{self._pattern_cache_key(new_L, self._config)}-"
                    f"{value_fingerprint(new_L)}")
-            payload, source, repacks = None, "pattern", 0
+            payload, source, repacked = None, "pattern", {}
             if cache:
                 payload = self._memory_get(key)
                 if payload is not None:
@@ -700,11 +819,18 @@ class TriangularOperator:
                     if payload is not None:
                         source = "disk"
                         self._memory_put(key, payload)
-            if payload is None:
-                payload, repacks = self._derive_payload(self._payload, new_L)
-                if cache:
-                    self._memory_put(key, payload)
-                    self._disk_store(key, payload, cache_dir)
+            derived = payload is None
+            if derived:
+                payload, repacked = self._derive_payload(
+                    self._payload, new_L, certify=policy.verify_schedule,
+                    where=where)
+            if policy.verify_schedule:
+                _certify(payload, self.device, where, base=self._payload,
+                         refreshed=repacked if derived else None)
+            if derived and cache:
+                self._memory_put(key, payload)
+                self._disk_store(key, payload, cache_dir)
+            repacks = sum(repacked.values())
             usp.set(source=source, repacks=repacks)
         self._L = new_L
         self._payload = payload
@@ -717,6 +843,35 @@ class TriangularOperator:
             ms=(time.perf_counter() - t0) * 1e3, cache_source=source,
             repacks=repacks)
         return self
+
+    # -- static verification --------------------------------------------------
+    @property
+    def certificate(self):
+        """The `ScheduleCertificate` this operator's payload carries, or
+        None when it was never verified (build without strict health and
+        no explicit verify() call)."""
+        return self._payload.get("certificate")
+
+    def verify(self, *, devices: int = 1, collectives: bool = False):
+        """Run the full static verifier on the compiled artifact now.
+
+        Audits the transformed system and certifies the schedule
+        regardless of health policy, and on a card the packed forms the
+        kernel reads; returns the `ScheduleCertificate` and keeps the
+        certificates on the payload (so a later strict-mode cache hit
+        skips re-verification).  Raises `ScheduleInvariantError` /
+        `TransformInvariantError` on violation; `collectives=True` raises
+        NotImplementedError until the sharded lowering is ported.
+        """
+        from ..analysis.verify import verify_operator_payload
+        where = f"TriangularOperator.verify(n={self.n})"
+        cert = verify_operator_payload(
+            self._payload, devices=devices, collectives=collectives,
+            where=where)
+        if self.device.type == "cuda":
+            self._payload.pop("packed_certificate", None)
+            _certify(self._payload, self.device, where)
+        return cert
 
     # -- cache plumbing -------------------------------------------------------
     @classmethod

@@ -70,7 +70,7 @@ from ..sparse.levels import LevelSets
 __all__ = ["WidthGroup", "LevelSchedule", "SchedValuePlan", "build_schedule",
            "schedule_for_csr", "schedule_for_transformed",
            "schedule_for_preamble", "repack_schedule_values",
-           "DEFAULT_WIDTHS"]
+           "validate_schedule", "DEFAULT_WIDTHS"]
 
 DEFAULT_WIDTHS = (4, 8, 16, 32)
 
@@ -820,3 +820,13 @@ def schedule_for_preamble(ts, chunk: int = 256, max_deps: int = 16,
         plan = None
     sched = dataclasses.replace(sched, value_plan=plan)
     return sched, src[perm], inv[:ts.A.n_rows]
+
+
+def validate_schedule(sched: LevelSchedule, A: CSR, diag: np.ndarray) -> None:
+    """Structural audit of a compiled schedule.  Thin shim over the full
+    verifier (`repro_torch.analysis.verify.verify_level_schedule`), kept
+    for the reference's call sites and tests; new code should call the
+    verifier directly and keep the returned `ScheduleCertificate`.  Raises
+    `ScheduleInvariantError` on violation."""
+    from ..analysis.verify import verify_level_schedule
+    verify_level_schedule(sched, A, diag, where="validate_schedule")

@@ -189,6 +189,45 @@ def test_calibrate_module_prints_the_fitted_constants(capsys):
     assert out["profiles"]["lung2_like"]["engine"] == "stepwise"
 
 
+def test_profiling_engine_solves_exactly():
+    """As the reference's tests/test_obs.py holds its ProfilingEngine: the
+    operator served through the stepwise profiler solves to 1e-4 of the
+    float64 oracle and leaves a profile of the steps it ran."""
+    from repro_torch.obs.profile import ProfilingEngine
+    from repro_torch.solver.reference import solve_csr_seq
+    L = generators.lung2_like(0.02)
+    eng = ProfilingEngine()
+    op = TriangularOperator.from_csr(L, tune="no_rewriting", cache=False,
+                                     engine=eng, device="cpu")
+    b = np.random.default_rng(1).standard_normal(L.n_rows)
+    x = op.solve(b, max_refine=0)
+    ref_x = solve_csr_seq(L, b)
+    assert float(np.max(np.abs(np.asarray(x, np.float64) - ref_x))) < 1e-4
+    prof = eng.last_profile
+    assert prof is not None and prof.num_steps > 0
+    assert prof.num_steps == op.schedule.num_steps
+    assert eng.name == "profiled[stepwise]"
+
+
+def test_profiling_engine_takes_its_base_engines_capabilities():
+    from repro_torch.obs.profile import ProfilingEngine
+    from repro_torch.solver.engines import get_engine
+    cuda = get_engine("cuda")
+    eng = ProfilingEngine(cuda)
+    assert eng.dtypes == cuda.dtypes and eng.device_types == ("cuda",)
+    assert eng.available() == cuda.available()
+    assert eng.cache_token() == "profiled[cuda]:cuda"
+    sched, _ = _schedules("lung2_like(0.05)/avgLevelCost")
+    ts = transform(generators.lung2_like(0.05), AvgLevelCost(),
+                   validate=False, codegen=False)
+    assert eng.sweep_shape(ts, sched) == cuda.sweep_shape(ts, sched)
+    # on a CPU-staged schedule it refuses, as the cuda engine does
+    with pytest.raises((ValueError, RuntimeError)):
+        eng.compile(to_device(sched, "cpu"))
+    assert ProfilingEngine().sweep_shape(ts, sched) == \
+        get_engine("torch").sweep_shape(ts, sched)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -225,3 +264,59 @@ def test_cuda_profile_steps_sum_to_the_launch(cuda_device):
         K.pack_schedule(sched).num_steps
     assert abs(prof.stamped_ms / prof.event_ms - 1.0) <= 0.10
     assert prof.launch_us >= 0 and prof.clock_mhz > 0
+
+
+@pytest.mark.cuda
+def test_cuda_profiling_engine_serves_through_the_stamped_form(cuda_device):
+    from repro_torch.obs.profile import ProfilingEngine
+    from repro_torch.solver.engines import get_engine
+    L = generators.lung2_like(0.05)
+    op = TriangularOperator.from_csr(L, tune="no_rewriting", cache=False,
+                                     device=cuda_device)
+    b = np.random.default_rng(2).standard_normal(L.n_rows)
+    want = op.solve(b, max_refine=0)
+    eng = ProfilingEngine(get_engine("cuda"))
+    before = K.LAUNCHES["sptrsv_groups_stamped"]
+    x = op.solve(b, max_refine=0, engine=eng)
+    assert K.LAUNCHES["sptrsv_groups_stamped"] > before
+    np.testing.assert_array_equal(x, want)
+    assert eng.last_profile.num_steps == op._staged().packed().num_steps
+
+
+def test_profiling_engine_solves_a_batched_right_side():
+    """solve(B) through the stepwise profiler: every column to 1e-4 of the
+    float64 oracle."""
+    from repro_torch.obs.profile import ProfilingEngine
+    from repro_torch.solver.reference import solve_csr_seq
+    L = generators.lung2_like(0.02)
+    eng = ProfilingEngine()
+    op = TriangularOperator.from_csr(L, tune="no_rewriting", cache=False,
+                                     device="cpu")
+    B = np.random.default_rng(3).standard_normal((L.n_rows, 3))
+    X = np.asarray(op.solve(B, max_refine=0, engine=eng), np.float64)
+    assert X.shape == B.shape
+    for r in range(B.shape[1]):
+        assert float(np.max(np.abs(X[:, r] - solve_csr_seq(L, B[:, r])))) \
+            < 1e-4
+    assert eng.last_profile.num_steps == op.schedule.num_steps
+
+
+@pytest.mark.cuda
+def test_cuda_profiling_engine_solves_a_batched_right_side(cuda_device):
+    """The stamped form takes one column: solve(B) goes column by column,
+    each as the serving kernel's batched solve gives it."""
+    from repro_torch.obs.profile import ProfilingEngine
+    from repro_torch.solver.engines import get_engine
+    L = generators.lung2_like(0.05)
+    op = TriangularOperator.from_csr(L, tune="no_rewriting", cache=False,
+                                     device=cuda_device)
+    B = np.random.default_rng(4).standard_normal((L.n_rows, 3))
+    want = np.asarray(op.solve(B, max_refine=0))
+    eng = ProfilingEngine(get_engine("cuda"))
+    before = K.LAUNCHES["sptrsv_groups_stamped"]
+    X = np.asarray(op.solve(B, max_refine=0, engine=eng))
+    assert K.LAUNCHES["sptrsv_groups_stamped"] >= before + 3
+    assert X.shape == B.shape
+    np.testing.assert_allclose(X, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+    assert eng.last_profile.num_steps == op._staged().packed().num_steps

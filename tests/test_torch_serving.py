@@ -13,9 +13,13 @@
   and the tuner faults (a failing or slow `StrategyPortfolio.tune`,
   patched with monkeypatch).  A batch whose solve raises resolves every
   future with that exception: nothing answers in its place.
-* A value re-bind that the tuned transformation cannot follow (its replay
-  changes the fill) is rebuilt untuned and the entry degraded, where the
-  reference fails the batch.
+* A value re-bind whose rewrite fill underflows to 0 keeps the tuned
+  operator: the port's replay keeps those zeros explicit, where the
+  reference's raises.
+* A hot swap whose re-bind of the tuned operator to the latest values
+  raises takes the tuner-failure path (the entry degraded, the error kept,
+  a tuner failure counted, a warning), where the reference's tune job
+  raises and leaves the entry warming.
 Every wait is bounded.  The `cuda` cases serve on the card and skip here;
 the JAX package is imported only inside the tests that compare with it,
 so that they run on a card without JAX.
@@ -345,6 +349,44 @@ def test_hot_swap_keeps_latest_values_when_updates_race_the_tune(
     assert entry["strategy"].startswith("manual_every_k")
     for x in (x_new, x_post):
         assert _oracle_err(x, L_new, b) < ORACLE_RTOL
+
+
+def test_swap_rebind_that_raises_degrades_the_entry(L, monkeypatch):
+    """The tuned operator is built on the admission values, where one
+    dependency is 0, so its transformation drops the fill that entry
+    feeds; the values sent while the tune runs make that fill non-zero,
+    outside the frozen pattern, so the swap's re-bind raises.  The entry
+    ends degraded with the error, one tuner failure and a warning, and
+    the untuned operator, re-bound to those values, keeps answering."""
+    rows = np.repeat(np.arange(L.n_rows), L.row_nnz())
+    data = L.data.copy()
+    data[(rows == 50) & (L.indices == 31)] = 0.0     # row 50 is rewritten
+    L0 = L.with_data(data)
+    b = _rhs(L)
+    count = _slow_tune(monkeypatch, 0.4)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with SolveService(max_width=4, max_linger_s=0.001, workers=2,
+                          tune_mode="background", **CPU,
+                          portfolio=StrategyPortfolio(
+                              candidates=[ManualEveryK(k=10)],
+                              device="cpu")) as svc:
+            x0 = svc.submit(b, L0).result(WAIT_S)
+            assert svc.registry.stats()["states"].get("warming") == 1
+            x1 = svc.submit(b, L).result(WAIT_S)
+            assert svc.wait_warm(timeout=WAIT_S)
+            x2 = svc.submit(b, L).result(WAIT_S)
+            reg = svc.registry.stats()
+    assert count["calls"] == 1
+    assert dict(reg["states"]) == {"degraded": 1}
+    assert reg["hot_swaps"] == 0 and reg["tuner_failures"] == 1
+    entry = next(iter(reg["entries"].values()))
+    assert entry["tune_error"].startswith("PatternMismatchError")
+    assert entry["strategy"] == "no_rewriting"
+    assert any(issubclass(w.category, TunerFailureWarning) for w in caught)
+    assert _oracle_err(x0, L0, b) < ORACLE_RTOL
+    for x in (x1, x2):
+        assert _oracle_err(x, L, b) < ORACLE_RTOL
 
 
 def test_sync_mode_is_hot_immediately(L):
