@@ -142,11 +142,36 @@ non-zero:
    stamped form, with its profile's steps equal to the packed steps, and
    solve `B` (n, 2) column by column within 1e-5 of the serving K2.  K1,
    its stamped form and K2 must be launched, the plain version never.
-10. The kernels line and the contract line.
+10. Runtime resilience at full size, on lung2_like(1.0) and
+   torso2_like(1.0), `from_csr(L, tune="no_rewriting", cache=False)`.  On
+   a card the host reference serves no solve under any policy: the
+   kernel serves it or it raises.  A healthy operator under "on",
+   "repair" and "fallback" gives K1's x bitwise the same, with no
+   fallback; a batched (n, 8) solve under "repair" is K2's.  Under
+   `nan_schedule_payload`, "on" and "fallback" raise
+   `NumericalHealthError` after K1's one launch, and "repair" launches K1
+   for its round and then raises it with `fallbacks == ("repair",)`.
+   Under `wrong_schedule_values` with `HealthPolicy(residual_check=True,
+   on_nonfinite="repair")`, a factor of 1.01 is repaired by refinement
+   through K1 (`residual:repaired`) and one of 3.0 raises after its
+   three rounds (`residual:raised`).  Under `fail_engine_compile("cuda")`
+   (the build's compile fails) and `engine_unavailable("cuda")`, with
+   the chain of "cuda" set to ("torch",), which the resolution never
+   returns for a card, "on", "repair" and "fallback" all raise
+   `EngineFallbackError` naming only "cuda", with no launch; after the
+   fault the same operator still refuses (the memo) and a fresh one
+   serves through K1.  A launch failure patched in for one call fails
+   that solve only: the next is K1's.  A staging failure patched in for
+   one build fails that build only: a memory hit of the same matrix
+   serves through K1.  No operator falls back or compiles the plain
+   engine, the plain version never runs, and the host reference serves
+   no solve in phases 4-10.  The phase prints its reference-served and
+   repaired solves, its K1, K2 and plain launches and its seconds.
+11. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
-With `--sweep` or `--ab`, phases 3-9 give way to studies of the SpTRSV
+With `--sweep` or `--ab`, phases 3-10 give way to studies of the SpTRSV
 kernel on lung2's
 and torso2's L and IC(0) L^T (R = 1, 8), written to
 chiprun_out/chip_smoke_study.json: `--sweep` times it at every consumer
@@ -2285,6 +2310,288 @@ def phase_static(rng) -> tuple:
     return res, counts
 
 
+# -- phase 10: runtime resilience ---------------------------------------------
+
+# wrong_schedule_values factors: 1.01 leaves a residual of ~1e-2 that
+# each refinement round through K1 cuts ~100-fold (the iteration's
+# spectral radius is |1 - f|), so two or three rounds reach the policy's
+# residual_tol of 1e-5; at 3.0 (|1 - f| = 2) refinement diverges and the
+# solve raises: on a card there is no host reference to escalate to.
+# Picked on the CPU at lung2_like/torso2_like(0.02, 0.1), where 1.01 is
+# repaired in two rounds (residual ~2e-6) and 1.05 is not in three.
+WRONG_REPAIRED, WRONG_UNREPAIRED = 1.01, 3.0
+
+
+def count_reference_solves() -> dict:
+    """From here on, count every host reference solve an operator serves
+    (`TriangularOperator._reference_solve`, the escape hatch of the
+    "repair" and "fallback" policies on the CPU, which must never serve
+    a card's operator): {"calls": n}."""
+    from repro_torch.solver import TriangularOperator
+    real = TriangularOperator._reference_solve
+    count = {"calls": 0}
+
+    def counted_reference(self, b):
+        count["calls"] += 1
+        return real(self, b)
+
+    TriangularOperator._reference_solve = counted_reference
+    return count
+
+
+def recorded(fn) -> tuple:
+    """(what fn() returned, or the exception it raised; the resilience
+    warnings it gave, by class name).  The caller judges both."""
+    import collections
+    import warnings
+    from repro_torch.core.resilience import ResilienceWarning
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        try:
+            out = fn()
+        except Exception as e:      # noqa: BLE001 - judged by the caller
+            out = e
+    return out, dict(collections.Counter(
+        w.category.__name__ for w in rec
+        if issubclass(w.category, ResilienceWarning)))
+
+
+def resilience_matrix(mat: str, L, rng, refs: dict) -> dict:
+    """Phase 10's cases on one matrix (module doc)."""
+    from repro_torch.core import faults
+    from repro_torch.core.resilience import (EngineFallbackError,
+                                             HealthPolicy,
+                                             NumericalHealthError)
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import TriangularOperator, set_fallback_chain
+    n = L.n_rows
+    b = rng.standard_normal(n)
+    x_ref = oracle(L, b)
+    scale = max(1.0, float(np.abs(x_ref).max()))
+    res, ops = {}, []
+
+    def build():
+        op = TriangularOperator.from_csr(L, tune="no_rewriting", cache=False)
+        ops.append(op)
+        return op
+
+    def err(x):
+        return float(np.abs(np.asarray(x, np.float64) - x_ref).max()) / scale
+
+    def solve(op, rhs=b, **kw):
+        """One recorded solve: (x or exception, warnings, K1 launches, K2
+        launches, reference solves) it made."""
+        k1, k2 = K.LAUNCHES["sptrsv_groups"], K.LAUNCHES["sptrsv_groups_multi"]
+        r0 = refs["calls"]
+        out, warned = recorded(lambda: op.solve(rhs, **kw))
+        return (out, warned, K.LAUNCHES["sptrsv_groups"] - k1,
+                K.LAUNCHES["sptrsv_groups_multi"] - k2, refs["calls"] - r0)
+
+    # a healthy operator: the same K1 answer under every level
+    op = build()
+    xs = {}
+    for level in ("on", "repair", "fallback"):
+        x, warned, k1, _, nref = solve(op, max_refine=0, health=level)
+        check(isinstance(x, np.ndarray) and k1 == 1 and nref == 0 and
+              not warned, f"{mat} healthy/{level}: {x!r:.200} K1 {k1}, "
+              f"reference {nref}, warnings {warned}")
+        xs[level] = x
+    check(all(np.array_equal(xs["on"], x) for x in xs.values()) and
+          err(xs["on"]) <= ORACLE_RTOL and op.stats.fallbacks == 0 and
+          op.stats.health_events == 0,
+          f"{mat} healthy: answers differ across levels or from the oracle "
+          f"({err(xs['on']):.3e}), stats {op.stats.to_dict()}")
+    B = rng.standard_normal((n, 8))
+    XB, warned, k1, k2, nref = solve(op, rhs=B, health="repair")
+    check(isinstance(XB, np.ndarray) and k2 >= 1 and nref == 0 and
+          op.stats.last_residual <= REFINE_TOL and not warned,
+          f"{mat} batched under repair: K2 {k2}, reference {nref}, "
+          f"residual {op.stats.last_residual:.3e}")
+    res["healthy"] = {"err_max_refine0": err(xs["on"]), "bitwise": True,
+                      "batched_k2_launches": k2,
+                      "batched_residual": op.stats.last_residual}
+
+    # a poisoned payload: on a card the host reference never serves, so
+    # every level raises; "repair" first spends its rounds through K1
+    with faults.nan_schedule_payload():
+        op_nan = build()
+    raised = {}
+    for level in ("on", "fallback", "repair"):
+        e, warned, k1, _, nref = solve(op_nan, health=level)
+        want = ("repair",) if level == "repair" else ()
+        check(isinstance(e, NumericalHealthError) and e.stage == "output"
+              and tuple(e.fallbacks) == want and nref == 0 and
+              k1 == (2 if level == "repair" else 1) and not warned and
+              op_nan.stats.last_health_event == "output:raised",
+              f"{mat} nan payload/{level}: {e!r:.300} K1 {k1}, reference "
+              f"{nref}, warnings {warned}, event "
+              f"{op_nan.stats.last_health_event}")
+        raised[level] = {"raised": type(e).__name__, "k1_launches": k1,
+                         "fallbacks": list(getattr(e, "fallbacks", ()))}
+    res["nan_payload"] = raised
+
+    # finitely wrong values under a residual check that repairs: K1's
+    # rounds repair the one factor and cannot repair the other, which
+    # then raises
+    policy = HealthPolicy(residual_check=True, on_nonfinite="repair")
+    res["wrong_values"] = {}
+    for factor, outcome in ((WRONG_REPAIRED, "residual:repaired"),
+                            (WRONG_UNREPAIRED, "residual:raised")):
+        with faults.wrong_schedule_values(factor):
+            op_w = build()
+        x, warned, k1, _, nref = solve(op_w, max_refine=0, health=policy)
+        resid = op_w.stats.last_residual
+        if outcome == "residual:repaired":
+            ok = (isinstance(x, np.ndarray) and
+                  resid <= policy.residual_tol and
+                  warned == {"HealthRepairWarning": 1})
+        else:
+            ok = (isinstance(x, NumericalHealthError) and
+                  x.stage == "residual" and
+                  tuple(x.fallbacks) == ("repair",) and not warned and
+                  k1 == 1 + policy.max_repair_rounds)
+        check(ok and op_w.stats.last_health_event == outcome and k1 >= 2
+              and nref == 0,
+              f"{mat} wrong values x{factor}: {x!r:.200} event "
+              f"{op_w.stats.last_health_event} (want {outcome}), K1 {k1}, "
+              f"reference {nref}, residual {resid:.3e}, warnings {warned}")
+        res["wrong_values"][str(factor)] = {
+            "event": outcome, "k1_launches": k1,
+            "residual": resid if isinstance(x, np.ndarray) else None,
+            "reference_solves": nref}
+
+    # a dead chain: compile failure at the build, or an engine that
+    # reports itself unavailable; the chain names the plain engine, which
+    # the resolution never returns for a card.  Every level raises
+    set_fallback_chain("cuda", ("torch",))
+    try:
+        for fault in ("fail_engine_compile", "engine_unavailable"):
+            if fault == "engine_unavailable":
+                op_d = build()          # compiled: the solve checks
+            with getattr(faults, fault)("cuda"):
+                if fault == "fail_engine_compile":
+                    op_d = build()      # the build's compile fails
+                for level in ("on", "repair", "fallback"):
+                    e, warned, k1, _, nref = solve(op_d, health=level)
+                    check(isinstance(e, EngineFallbackError) and
+                          [a for a, _ in e.attempts] == ["cuda"] and
+                          k1 == 0 and nref == 0 and not warned,
+                          f"{mat} {fault}/{level}: {e!r:.300} K1 {k1}, "
+                          f"reference {nref}, warnings {warned}")
+            check(op_d.stats.health_events == 0, f"{mat} {fault}: health "
+                  f"events {op_d.stats.health_events}")
+            again, _, k1, _, nref = solve(op_d, health="fallback")
+            check(isinstance(again, EngineFallbackError) and
+                  "previously failed" in str(again) and k1 == 0 and
+                  nref == 0, f"{mat} {fault}: after the fault the operator "
+                  f"did not refuse the engine: {again!r:.300}")
+            fresh = build()
+            x, _, k1, _, nref = solve(fresh, max_refine=0)
+            check(isinstance(x, np.ndarray) and k1 == 1 and
+                  err(x) <= ORACLE_RTOL, f"{mat} {fault}: a fresh operator "
+                  f"did not serve through K1 ({x!r:.200}, K1 {k1})")
+            res[fault] = {"attempts": [list(a) for a in e.attempts],
+                          "fresh_err": err(x)}
+    finally:
+        set_fallback_chain("cuda", ())
+
+    # a staging failure at the build fails that build only: a memory hit
+    # of the same matrix stages anew and serves through K1
+    from repro_torch.solver import levelset
+    real_stage, staged = levelset.to_device, {"n": 0}
+
+    def stage_once(*args, **kwargs):
+        if not staged["n"]:
+            staged["n"] += 1
+            raise RuntimeError("injected staging failure")
+        return real_stage(*args, **kwargs)
+
+    levelset.to_device = stage_once
+    try:
+        e, _ = recorded(lambda: TriangularOperator.from_csr(
+            L, tune="no_rewriting"))
+    finally:
+        levelset.to_device = real_stage
+    op_m = TriangularOperator.from_csr(L, tune="no_rewriting")
+    ops.append(op_m)
+    x, _, k1, _, nref = solve(op_m, max_refine=0)
+    check(isinstance(e, RuntimeError) and "staging" in str(e) and
+          staged["n"] == 1 and op_m.stats.cache_source == "memory" and
+          not op_m._runtime.get("engine_failures") and
+          isinstance(x, np.ndarray) and k1 == 1 and nref == 0 and
+          err(x) <= ORACLE_RTOL,
+          f"{mat} staging failure at the build: {e!r:.300}; memory hit "
+          f"{op_m.stats.cache_source}, K1 {k1}, {x!r:.200}")
+    res["staging_failure"] = {"raised": type(e).__name__,
+                              "memory_hit_k1": k1}
+
+    # a transient launch failure: that solve raises, the next is K1's
+    real, fired = K._launch, {"n": 0}
+
+    def once(packed, c_pad):
+        if not fired["n"]:
+            fired["n"] += 1
+            raise RuntimeError("injected transient launch failure")
+        return real(packed, c_pad)
+
+    K._launch = once
+    try:
+        e, _, _, _, nref = solve(op, max_refine=0)
+    finally:
+        K._launch = real
+    x, _, k1, _, _ = solve(op, max_refine=0)
+    check(isinstance(e, EngineFallbackError) and "transient" in str(e) and
+          fired["n"] == 1 and nref == 0 and
+          not op._runtime.get("engine_failures") and
+          isinstance(x, np.ndarray) and k1 == 1 and
+          np.array_equal(x, xs["on"]),
+          f"{mat} transient launch failure: {e!r:.300}; next solve K1 {k1}")
+    res["transient"] = {"raised": type(e).__name__, "next_k1": k1}
+
+    # no operator was ever downgraded, and none compiled the plain engine
+    check(all(o.stats.fallbacks == 0 and
+              "torch" not in o._runtime["compiled"] for o in ops),
+          f"{mat}: an operator fell back or compiled the plain engine")
+    res["repaired_solves"] = sum(
+        1 for r in res["wrong_values"].values()
+        if r["event"] == "residual:repaired")
+    res["operators"] = len(ops)
+    return res
+
+
+def phase_resilience(rng, refs: dict) -> tuple:
+    """Runtime resilience at full size (module doc, phase 10).  Returns
+    (result, launch counts of this path)."""
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.sparse import generators
+    TriangularOperator.clear_memory_cache()
+    K.reset_launch_counts()
+    r0 = refs["calls"]
+    res = {}
+    for mat in ("lung2_like", "torso2_like"):
+        t0 = time.perf_counter()
+        res[mat] = resilience_matrix(mat, getattr(generators, mat)(1.0), rng,
+                                     refs)
+        res[mat]["seconds"] = time.perf_counter() - t0
+        log(f"  {mat}(1.0): {json.dumps(res[mat], default=str)}")
+    counts = dict(K.LAUNCHES)
+    res["reference_solves"] = refs["calls"] - r0
+    res["repaired_solves"] = sum(res[m]["repaired_solves"]
+                                 for m in ("lung2_like", "torso2_like"))
+    log(f"  reference-served solves {res['reference_solves']}, repaired "
+        f"solves {res['repaired_solves']}; launches K1 "
+        f"{counts['sptrsv_groups']}, K2 {counts['sptrsv_groups_multi']}, "
+        f"plain {counts['plain']}")
+    check(counts["sptrsv_groups"] > 0 and counts["sptrsv_groups_multi"] > 0,
+          f"a kernel of the resilience path was never launched: {counts}")
+    check(counts["plain"] == 0,
+          f"the plain version ran on the resilience path: {counts}")
+    check(res["reference_solves"] == 0, f"the host reference served "
+          f"{res['reference_solves']} solves of a card's operator")
+    return res, counts
+
+
 def study_cases() -> list:
     """(label, schedule) of lung2's and torso2's L and IC(0) L^T at full
     scale: the forward and backward sweeps of the main paths."""
@@ -2418,7 +2725,7 @@ def phase_ab(dirs: list, rng) -> list:
 def kernels_line(krows: list, *path_counts: dict,
                  served_err: dict | None = None) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the main paths (phases 4 to 9)."""
+    launches summed over the main paths (phases 4 to 10)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -2502,6 +2809,7 @@ def run(args, tuned_dir: str) -> int:
         return 0
     log("== 3. kernels against their plain versions")
     krows = phase_kernels(rng)
+    refs = count_reference_solves()
     log("== 4. main path")
     mrows, counts = phase_main_path(rng)
     log("== 5. preconditioned Krylov path")
@@ -2527,8 +2835,16 @@ def run(args, tuned_dir: str) -> int:
     static, static_counts = phase_static(rng)
     static["seconds"] = time.perf_counter() - t9
     log(f"  phase 9 took {static['seconds']:.1f} s")
+    log(f"  host reference solves in phases 4-9: {refs['calls']}")
+    check(refs["calls"] == 0, f"the host reference served {refs['calls']} "
+          "solves in phases 4-9")
+    log("== 10. runtime resilience at full size")
+    t10 = time.perf_counter()
+    resil, resil_counts = phase_resilience(rng, refs)
+    resil["seconds"] = time.perf_counter() - t10
+    log(f"  phase 10 took {resil['seconds']:.1f} s")
     line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts,
-                        serve_counts, static_counts,
+                        serve_counts, static_counts, resil_counts,
                         served_err=serve["kernels_vs_plain_max_abs_err"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2539,7 +2855,8 @@ def run(args, tuned_dir: str) -> int:
          "tuner_launches": tune_counts, "life_cycle": life,
          "life_cycle_launches": life_counts, "serving": serve,
          "serving_launches": serve_counts, "static": static,
-         "static_launches": static_counts, "kernels_line": line,
+         "static_launches": static_counts, "resilience": resil,
+         "resilience_launches": resil_counts, "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(card["nvidia_smi"])

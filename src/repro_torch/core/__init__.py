@@ -11,8 +11,10 @@ from .portfolio import (STRATEGY_REGISTRY, PairReport, PortfolioCandidate,
                         default_candidates, default_cost_model_for,
                         make_strategy)
 from .portfolio import CostModel as TuningCostModel
-from .resilience import (CacheQuarantineWarning, HealthPolicy,
-                         NumericalHealthError, PatternMismatchError,
-                         ResilienceError, ResilienceWarning, RetryPolicy,
+from .resilience import (CacheQuarantineWarning, EngineFallbackError,
+                         EngineFallbackWarning, HealthPolicy,
+                         HealthRepairWarning, NumericalHealthError,
+                         PatternMismatchError, ResilienceError,
+                         ResilienceWarning, RetryPolicy,
                          ScheduleInvariantError, SolveGuard,
                          TransformInvariantError, resolve_health_policy)

@@ -1,12 +1,20 @@
-"""Fault-injection harness, the static half: the defects the verifier must
-reject.
+"""Fault-injection harness: chaos-test the solve path's resilience layer.
 
-Port of the static part of `repro.core.faults`.  Each injector makes one
-failure class real — a NaN-poisoned or finitely wrong schedule payload, a
-poisoned value re-bind, a reordered step, a row finalized twice, an
-out-of-bounds gather index, a corrupt replay plan — so the tests and
-`chip_smoke.py` can prove that `health="strict"` rejects every class with
-a typed error naming its check before anything is packed or launched:
+Port of `repro.core.faults`.  Each injector makes one failure class real,
+so the tests and `chip_smoke.py` can prove that every fault either
+recovers (via `repro_torch.core.resilience`'s guards and the operator's
+repair and host-reference paths) or raises a typed, actionable error:
+
+* static defects the verifier must reject — a reordered step, a row
+  finalized twice, an out-of-bounds gather index, a corrupt replay plan:
+  `health="strict"` rejects every class with a typed error naming its
+  check before anything is packed or launched;
+* payload faults — a NaN-poisoned or finitely wrong schedule, a poisoned
+  value re-bind, a drifted pattern (`pattern_drift`);
+* runtime faults — an engine whose compile fails (`fail_engine_compile`)
+  or that reports itself unavailable (`engine_unavailable`), a failing or
+  stalled tuner (`fail_tuner`, `slow_tuner`), corrupt disk-cache entries
+  (`corrupt_cache_entries`), a stalled profiler step (`slow_step`).
 
     from repro_torch.core import faults
 
@@ -14,34 +22,42 @@ a typed error naming its check before anything is packed or launched:
         TriangularOperator.from_csr(L, "avgLevelCost", cache=False,
                                     health="strict")  # ScheduleInvariantError
 
-    with faults.corrupt_values_payload():
-        op.update_values(L_new, health="strict")      # raises, op unchanged
+    with faults.nan_schedule_payload():
+        op = TriangularOperator.from_csr(L, cache=False)      # poisoned
+        op.solve(b, health="fallback")  # the host reference serves on the
+                                        # CPU; on a card it raises
+
+    with faults.fail_engine_compile("cuda"):
+        op = TriangularOperator.from_csr(L, cache=False)
+        op.solve(b)          # EngineFallbackError: the chain is empty
 
 Injectors patch the port's own seams (`solver.schedule.
 schedule_for_transformed`, `solver.schedule.repack_schedule_values`,
-`core.transform.transform`) — never torch or numpy — so a fault is scoped,
-deterministic, and cannot leak outside the context.  The schedule faults
-reach the SpTRSV kernel's packed tiles on a card, since the operator packs
-the schedule they return.  They are test and tooling utilities: nothing
-in the serving path imports this module.
+`core.transform.transform`, the engine registry's instances,
+`StrategyPortfolio.tune`, `obs.profile._STEP_FAULT`) — never torch or
+numpy — so a fault is scoped, deterministic, and cannot leak outside the
+context.  The schedule faults reach the SpTRSV kernel's packed tiles on a
+card, since the operator packs the schedule they return.  They are test
+and tooling utilities: nothing in the serving path imports this module.
 
-Not ported yet (ROADMAP.md, queue 1 item 2, with the engine fallback
-chains): the cache, engine, tuner and mesh injectors
-(`corrupt_cache_entries`, `fail_engine_compile`, `engine_unavailable`,
-`fail_tuner`, `slow_tuner`, `lose_mesh`), `pattern_drift`, and the
-profiler's `slow_step` with its `_STEP_FAULT` seam.
+Not ported yet (ROADMAP.md, queue 1 item 4, with the sharded solves):
+`lose_mesh`.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import importlib
+import pickle
+from pathlib import Path
 
 import numpy as np
 
 __all__ = [
     "poison_schedule", "scale_schedule", "nan_schedule_payload",
-    "wrong_schedule_values", "corrupt_values_payload",
+    "wrong_schedule_values", "corrupt_values_payload", "pattern_drift",
+    "corrupt_cache_entries", "fail_engine_compile", "engine_unavailable",
+    "fail_tuner", "slow_tuner", "slow_step",
     # static defects the analysis verifier must reject
     "swap_schedule_steps", "duplicate_schedule_row", "oob_schedule_index",
     "corrupt_plan", "reorder_schedule_step", "duplicate_lane_row",
@@ -139,6 +155,28 @@ def corrupt_values_payload(value: float = np.nan):
     with _patched(_sched, "repack_schedule_values", faulty):
         yield count
 
+
+
+def pattern_drift(L):
+    """A same-shape, same-nnz copy of a CSR with ONE strict-lower entry's
+    column silently shifted left — the pattern drift that value-level
+    checks cannot see (finiteness, norms and fingerprint length all
+    match).  update_values / refactor must reject it with a typed
+    PatternMismatchError, never produce a finite wrong answer."""
+    from ..sparse.csr import CSR
+    indices = L.indices.copy()
+    rows = np.repeat(np.arange(L.n_rows), np.diff(L.indptr))
+    for p in range(L.nnz):
+        c, r = int(indices[p]), int(rows[p])
+        if not 0 < c < r:               # need a shiftable strict-lower entry
+            continue
+        if p > 0 and rows[p - 1] == r and indices[p - 1] == c - 1:
+            continue                    # (r, c-1) occupied: stay sorted/unique
+        indices[p] = c - 1
+        return CSR(indptr=L.indptr, indices=indices, data=L.data.copy(),
+                   shape=L.shape)
+    raise ValueError("pattern_drift: no shiftable strict-lower entry "
+                     "(matrix too small/diagonal)")
 
 # -- static schedule defects --------------------------------------------------
 #
@@ -316,3 +354,132 @@ def corrupt_replay_plan(mode: str = "target"):
 
     with _patched(_tr, "transform", faulty):
         yield count
+
+
+# -- cache faults -------------------------------------------------------------
+
+
+def corrupt_cache_entries(cache_dir, mode: str = "garbage") -> list:
+    """Corrupt every operator artifact of the port (`torch-op-*.pkl`)
+    under `cache_dir` in place.
+
+    mode: "garbage"  — non-pickle bytes (torn write from a crashed
+                       process without atomic replace),
+          "truncate" — valid pickle prefix cut short (partial write),
+          "stale"    — a well-formed pickle whose version field is not
+                       CACHE_VERSION.
+    Returns the corrupted paths.
+    """
+    from ..solver.operator import CACHE_PREFIX
+    paths = sorted(Path(cache_dir).glob(f"{CACHE_PREFIX}*.pkl"))
+    for p in paths:
+        if mode == "garbage":
+            p.write_bytes(b"\x80\x05this is not a valid pickle stream")
+        elif mode == "truncate":
+            raw = p.read_bytes()
+            p.write_bytes(raw[: max(1, len(raw) // 3)])
+        elif mode == "stale":
+            payload = pickle.loads(p.read_bytes())
+            payload["version"] = -1
+            p.write_bytes(pickle.dumps(payload))
+        else:
+            raise ValueError(f"unknown corruption mode {mode!r}")
+    return paths
+
+
+# -- engine faults ------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fail_engine_compile(name: str, times: int | None = None, exc=None):
+    """The named REGISTERED engine's compile() raises for the first
+    `times` calls inside the context (None = every call).  Yields a
+    counter dict: {"calls": total compile calls, "failed": injected
+    failures} for asserting the fault actually fired.  An operator built
+    on a card inside the context memoizes the failure at its build (which
+    stages the kernel's schedule), so its solves refuse the engine."""
+    from ..solver.engines import get_engine
+    eng = get_engine(name)
+    real = eng.compile                  # bound method of the live instance
+    count = {"calls": 0, "failed": 0}
+
+    def faulty(dsched):
+        count["calls"] += 1
+        if times is None or count["calls"] <= times:
+            count["failed"] += 1
+            raise (exc if exc is not None else RuntimeError(
+                f"injected compile failure in engine {name!r} "
+                f"(call {count['calls']})"))
+        return real(dsched)
+
+    with _patched(eng, "compile", faulty):
+        yield count
+
+
+@contextlib.contextmanager
+def engine_unavailable(name: str):
+    """The named registered engine reports available() == False inside the
+    context (e.g. "no CUDA device in this process")."""
+    from ..solver.engines import get_engine
+    eng = get_engine(name)
+    with _patched(eng, "available", lambda: False):
+        yield
+
+
+# -- tuner faults -------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fail_tuner(exc=None):
+    """Every `StrategyPortfolio.tune` call inside the context raises — the
+    fault class a serving tier's BACKGROUND tuning worker must survive:
+    admission already served the untuned operator, so a tuner blow-up may
+    degrade the entry (no hot-swap, `TunerFailureWarning`) but must never
+    poison it or block the request path.  Yields {"calls": n} for
+    asserting the fault actually fired."""
+    from .portfolio import StrategyPortfolio
+    count = {"calls": 0}
+
+    def faulty(self, L):
+        count["calls"] += 1
+        raise (exc if exc is not None else RuntimeError(
+            f"injected tuner failure (call {count['calls']})"))
+
+    with _patched(StrategyPortfolio, "tune", faulty):
+        yield count
+
+
+@contextlib.contextmanager
+def slow_tuner(delay_s: float = 0.5):
+    """Every `StrategyPortfolio.tune` call inside the context stalls for
+    `delay_s` before running for real — the stalled-background-tuner fault:
+    entries stay "warming" while requests keep flowing through the untuned
+    operator, and the eventual hot-swap still lands.  Yields {"calls": n}."""
+    import time
+    from .portfolio import StrategyPortfolio
+    real = StrategyPortfolio.tune
+    count = {"calls": 0}
+
+    def slow(self, L):
+        count["calls"] += 1
+        time.sleep(delay_s)
+        return real(self, L)
+
+    with _patched(StrategyPortfolio, "tune", slow):
+        yield count
+
+
+# -- profiler faults ----------------------------------------------------------
+
+
+def slow_step(step_idx: int, seconds: float):
+    """Every TIMED (non-warmup) pass of the step-wise profiler
+    (`repro_torch.obs.profile`, the plain engine one step at a time)
+    inside the context stalls for `seconds` before executing step
+    `step_idx` — the one-slow-step fault (a preempted core) the per-step
+    histogram must localize: `argmax(step_ms) == step_idx`.  The card's
+    stamped profile is one launch of K1's stamped form, whose steps run
+    inside the kernel, so no host stall can land inside one of them: this
+    fault does not reach it."""
+    from ..obs import profile as _prof
+    return _patched(_prof, "_STEP_FAULT", (int(step_idx), float(seconds)))

@@ -1,22 +1,28 @@
 """Solve-path health checks: the typed error taxonomy, `HealthPolicy` and
 the `SolveGuard` that enforces it.
 
-Copy of the parts of `repro.core.resilience` that the port's operator
-and factorizations use.  The port's solve never repairs and never walks a
-fallback chain: an unhealthy solve raises.  Not ported yet (ROADMAP.md,
-queue 1 item 2): the policy's `on_nonfinite` and `max_repair_rounds`, the
-"repair"/"fallback" levels, `EngineFallbackError`,
-`EngineFallbackWarning` and `HealthRepairWarning`.  A corrupt
-or stale disk-cache entry is quarantined with a `CacheQuarantineWarning`
-and the operator rebuilt on the host.  `RetryPolicy` is the geometric-backoff ladder of the
-diagonal-shift retries in `precond.factorize`.
+Copy of `repro.core.resilience` for the port, consumed by:
+
+* `repro_torch.solver.operator.TriangularOperator.solve` (+ `sptrsv`,
+  `Preconditioner.apply`): input/output health checks with
+  raise / fallback / repair actions,
+* `repro_torch.solver.engines`: engine fallback chains
+  (`engine_fallbacks`), each downgrade warned and recorded in
+  `OperatorStats`.  A CUDA-staged schedule's chain never holds the plain
+  engine, so no fallback hides the kernel,
+* `repro_torch.precond.factorize`: breakdown-shift retries via
+  `RetryPolicy`,
+* `repro_torch.solver.operator._disk_load/_disk_store`: quarantine of
+  corrupt or stale entries (`CacheQuarantineWarning`).
 
 Error taxonomy
 ==============
     ResilienceError(RuntimeError)
     ├── NumericalHealthError     non-finite / inaccurate solve data; carries
-    │                            `.stage` ("input"|"output"|"residual")
-    │                            and `.where`
+    │                            `.stage` ("input"|"output"|"residual"),
+    │                            `.where`, and `.fallbacks` attempted
+    ├── EngineFallbackError      every engine in a fallback chain failed;
+    │                            carries `.attempts` [(engine, reason), ...]
     ├── PatternMismatchError     a value-only refactorization was handed a
     │                            matrix whose sparsity pattern differs from
     │                            the frozen one; carries `.where` and
@@ -40,6 +46,9 @@ Error taxonomy
 Warning taxonomy
 ================
     ResilienceWarning(UserWarning)
+    ├── EngineFallbackWarning    an engine was downgraded (never silent)
+    ├── HealthRepairWarning      a health violation was repaired, or served
+    │                            by the host reference solve
     ├── CacheQuarantineWarning   a disk-cache entry was unreadable or stale
     │                            and moved to `.bad/`
     └── TunerFailureWarning      a background tune failed; the untuned
@@ -48,13 +57,17 @@ Warning taxonomy
 Health policy
 =============
 `HealthPolicy` is resolved per solve: an explicit `HealthPolicy` instance,
-a named level (`"off" | "on" | "strict"`), or `None` for the
-`REPRO_HEALTH_CHECKS` environment default (same names; unset means
-`"on"`).  `"on"` checks input/output finiteness and raises typed errors;
-`"strict"` additionally checks the relative residual against the original
-matrix and statically certifies compiled schedules, and the SpTRSV
-kernel's packed forms of them, via `repro_torch.analysis.verify` before
-anything launches.
+a named level (`"off" | "on" | "strict" | "repair" | "fallback"`), or
+`None` for the `REPRO_HEALTH_CHECKS` environment default (same names;
+unset means `"on"`).  `"on"` checks input/output finiteness and raises
+typed errors; `"strict"` additionally checks the relative residual
+against the original matrix and statically certifies compiled schedules,
+and the SpTRSV kernel's packed forms of them, via
+`repro_torch.analysis.verify` before anything launches; `"repair"` /
+`"fallback"` recover instead of raising.  Only those two ever serve a
+solve from the float64 host reference, and then always with a
+`HealthRepairWarning`, and only for an operator staged on the CPU: on a
+card the kernel serves the solve or it raises, under every policy.
 """
 from __future__ import annotations
 
@@ -63,10 +76,11 @@ import os
 
 import numpy as np
 
-__all__ = ["ResilienceError", "NumericalHealthError", "PatternMismatchError",
-           "AdmissionError", "ScheduleInvariantError",
-           "TransformInvariantError", "ResilienceWarning",
-           "CacheQuarantineWarning",
+__all__ = ["ResilienceError", "NumericalHealthError", "EngineFallbackError",
+           "PatternMismatchError", "AdmissionError",
+           "ScheduleInvariantError", "TransformInvariantError",
+           "ResilienceWarning", "EngineFallbackWarning",
+           "HealthRepairWarning", "CacheQuarantineWarning",
            "TunerFailureWarning", "HealthPolicy",
            "SolveGuard", "resolve_health_policy", "RetryPolicy"]
 
@@ -81,15 +95,36 @@ class ResilienceError(RuntimeError):
 class NumericalHealthError(ResilienceError):
     """A solve's data failed a health check.
 
-    stage: "input" (non-finite right-hand side), "output" (non-finite
-           solution), or "residual" (finite but inaccurate solution).
-    where: the component that detected it (operator repr, facade name).
+    stage:     "input" (non-finite right-hand side), "output" (non-finite
+               solution), or "residual" (finite but inaccurate solution).
+    where:     the component that detected it (operator repr, facade name).
+    fallbacks: recovery paths attempted before raising (empty when the
+               policy action is "raise").
     """
 
-    def __init__(self, message: str, *, stage: str, where: str = ""):
+    def __init__(self, message: str, *, stage: str, where: str = "",
+                 fallbacks: tuple = ()):
         self.stage = stage
         self.where = where
-        super().__init__(f"[{stage}] {message}")
+        self.fallbacks = tuple(fallbacks)
+        tail = f" (attempted fallbacks: {list(self.fallbacks)})" \
+            if self.fallbacks else ""
+        super().__init__(f"[{stage}] {message}{tail}")
+
+
+class EngineFallbackError(ResilienceError):
+    """Every engine in a fallback chain failed to compile or solve.
+
+    attempts: [(engine_name, reason), ...] in the order they were tried —
+    the error message names each one, so the failure is actionable.
+    """
+
+    def __init__(self, where: str, attempts: list):
+        self.where = where
+        self.attempts = list(attempts)
+        detail = "; ".join(f"{name}: {reason}" for name, reason in attempts)
+        super().__init__(
+            f"{where}: every engine in the fallback chain failed — {detail}")
 
 
 class PatternMismatchError(ResilienceError):
@@ -194,6 +229,14 @@ class ResilienceWarning(UserWarning):
     """Base class for resilience-layer warnings (downgrades are loud)."""
 
 
+class EngineFallbackWarning(ResilienceWarning):
+    """A solve was downgraded to a fallback engine."""
+
+
+class HealthRepairWarning(ResilienceWarning):
+    """A health violation was repaired or recovered via fallback."""
+
+
 class CacheQuarantineWarning(ResilienceWarning):
     """A corrupt/stale disk-cache entry was quarantined to `.bad/`."""
 
@@ -210,21 +253,34 @@ class TunerFailureWarning(ResilienceWarning):
 
 # -- health policy ------------------------------------------------------------
 
+_NONFINITE_ACTIONS = ("raise", "fallback", "repair")
 HEALTH_ENV_VAR = "REPRO_HEALTH_CHECKS"
 
 
 @dataclasses.dataclass(frozen=True)
 class HealthPolicy:
-    """What SolveGuard checks.  Every violation raises.
+    """What SolveGuard checks and how violations are handled.
 
-    check_inputs:   reject non-finite right-hand sides.
-    check_outputs:  reject non-finite solutions.
+    check_inputs:   reject non-finite right-hand sides (always an error:
+                    garbage in cannot be repaired).
+    check_outputs:  detect non-finite solutions.
+    on_nonfinite:   action for an unhealthy OUTPUT, and for an engine
+                    chain that is exhausted — "raise" a typed error;
+                    "fallback" to the float64 host reference solve;
+                    "repair" by sanitizing + iterative refinement through
+                    the operator's own engine, escalating to the host
+                    reference if refinement cannot reach `residual_tol`.
+                    The host reference serves CPU-staged operators only:
+                    on a card what the kernel cannot serve or repair
+                    raises.
     residual_check: additionally verify the relative residual
                     max|b - Ax| / max(1, max|b|) against the ORIGINAL
                     matrix on every solve (costs one host matvec).
-    residual_tol:   threshold for the residual check.  Looser than the
-                    refinement tolerance: it flags wrong answers, not
-                    last-ulp noise.
+    residual_tol:   threshold for the residual check and the repair
+                    target.  Looser than the refinement tolerance: it
+                    flags wrong answers, not last-ulp noise.
+    max_repair_rounds: refinement rounds "repair" may spend before
+                    escalating to the host reference.
     verify_schedule: statically verify compiled schedules and transform
                     plans (`repro_torch.analysis.verify`) before they serve
                     a solve: operator builds certify the schedule and the
@@ -239,9 +295,21 @@ class HealthPolicy:
 
     check_inputs: bool = True
     check_outputs: bool = True
+    on_nonfinite: str = "raise"
     residual_check: bool = False
     residual_tol: float = 1e-5
+    max_repair_rounds: int = 3
     verify_schedule: bool = False
+
+    def __post_init__(self):
+        if self.on_nonfinite not in _NONFINITE_ACTIONS:
+            raise ValueError(
+                f"on_nonfinite must be one of {_NONFINITE_ACTIONS}, got "
+                f"{self.on_nonfinite!r}")
+
+    @property
+    def enabled(self) -> bool:
+        return self.check_inputs or self.check_outputs or self.residual_check
 
     @classmethod
     def off(cls) -> "HealthPolicy":
@@ -261,6 +329,8 @@ _NAMED_POLICIES = {
     "on": HealthPolicy,
     "1": HealthPolicy,
     "strict": HealthPolicy.strict,
+    "repair": lambda: HealthPolicy(on_nonfinite="repair"),
+    "fallback": lambda: HealthPolicy(on_nonfinite="fallback"),
 }
 
 
@@ -285,8 +355,10 @@ def resolve_health_policy(spec=None) -> HealthPolicy:
 class SolveGuard:
     """Health validation for one solve, per a HealthPolicy.
 
-    The guard detects and classifies; the owning component raises.  See
-    `TriangularOperator.solve` for the consumer.
+    The guard only *detects* and *classifies* — recovery (host reference
+    fallback, refinement repair) is the owning component's job, because it
+    alone holds the original matrix and the device pipeline.  See
+    `TriangularOperator.solve` for the canonical consumer.
     """
 
     def __init__(self, policy: HealthPolicy, where: str = "solve"):

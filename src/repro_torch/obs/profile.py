@@ -32,10 +32,12 @@ plain torch loop; over the "cuda" engine every solve it serves is one run
 of K1's stamped form.
 
 Clocks are injected (`clock=time.perf_counter` by default) for both
-methods: the CPU's step times and the card's host time per launch.  Not
-ported yet: the sharded path's collective split (ROADMAP.md, queue 1:
-sharded solves) and the `_STEP_FAULT` seam of the fault injectors
-(resilience).
+methods: the CPU's step times and the card's host time per launch.  The
+step-wise loop has the reference's `_STEP_FAULT` seam, which
+`core.faults.slow_step` sets to stall one step of every timed pass; the
+stamped form is one launch, so no host stall can land inside one of its
+steps.  Not ported yet: the sharded path's collective split (ROADMAP.md,
+queue 1: sharded solves).
 """
 from __future__ import annotations
 
@@ -49,6 +51,17 @@ from .metrics import DEFAULT_MS_BUCKETS
 
 __all__ = ["ScheduleProfile", "profile_schedule", "profile_operator",
            "merge_profiles", "ProfilingEngine", "DEFAULT_MS_BUCKETS"]
+
+# (step_idx, seconds) | None — patched by core.faults.slow_step to stall
+# one step of every *timed* pass of the step-wise loop (warm-up runs stay
+# clean)
+_STEP_FAULT = None
+
+
+def _fire_step_fault(s: int) -> None:
+    f = _STEP_FAULT
+    if f is not None and f[0] == s:
+        time.sleep(f[1])
 
 
 @dataclasses.dataclass
@@ -206,6 +219,8 @@ def _profile_stepwise(ds, c: torch.Tensor, *, reps, warmup, clock):
                             device=c_pad.device)
         for s, sg in enumerate(per_step):
             t0 = clock()
+            if record is not None:
+                _fire_step_fault(s)     # stall INSIDE the timed window
             _step_body(x, carry, c_pad, sg)
             if record is not None:
                 record[s] = min(record[s], clock() - t0)

@@ -301,7 +301,10 @@ class Preconditioner:
         construction, and a fixed slightly perturbed M only changes the
         Krylov convergence rate, not the attainable outer residual.  The
         sweeps run in the schedule dtype; only the returned z is cast up
-        to float64.  `health` goes to both sweeps' SolveGuard.
+        to float64.  `health` goes to both sweeps' SolveGuard: a
+        HealthPolicy, a named level ("off" | "on" | "strict" | "repair" |
+        "fallback"), or None for the REPRO_HEALTH_CHECKS default
+        (TriangularOperator.solve).
         """
         z = self.forward.solve(r, engine=engine, max_refine=max_refine,
                                refine_tol=refine_tol, health=health)

@@ -144,8 +144,9 @@ def sptrsv(A: CSR, b, *, lower: bool = True, transpose: bool = False,
     cache/cache_dir: reuse/persist the compiled operator artifact across
             calls (TriangularOperator.from_csr).
     health: solve-path health policy — a HealthPolicy, a named level
-            ("off" | "on" | "strict"), or None for the REPRO_HEALTH_CHECKS
-            environment default.  Applies to every solve this call
+            ("off" | "on" | "strict" | "repair" | "fallback"), or None for
+            the REPRO_HEALTH_CHECKS environment default
+            (TriangularOperator.solve).  Applies to every solve this call
             performs, backward (adjoint) passes included.
     """
     if mesh is not None:

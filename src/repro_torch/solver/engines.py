@@ -18,10 +18,22 @@ Each engine also says what one sweep costs it, for the tuner
 (`sweep_shape`): the plain engine runs the schedule's steps over its
 padded width groups, the CUDA kernel the DAG's levels over the packed rows.
 
-Unknown names raise `ValueError` listing the registered engines.  There
-are no fallback chains in the port yet: an engine that cannot serve a
-schedule (wrong dtype, wrong device, failed build) raises, and nothing
-substitutes another engine for it.
+Unknown names raise `ValueError` listing the registered engines.
+
+Fallback chains (`fallback_chains`, `set_fallback_chain`,
+`engine_fallbacks`) name the engines `TriangularOperator.solve` tries,
+in order, when the requested one is unavailable or its compile or call
+raises; each downgrade is warned (`EngineFallbackWarning`) and counted,
+and an exhausted chain raises `EngineFallbackError`.  The port's table is
+`{"cuda": (), "torch": ()}`: the reference's terminal engine is a
+compiled path on the same device, and the port's only counterpart to it
+is the plain body, which never serves the card.  The resolution enforces
+that whatever the table says: for a schedule staged on a CUDA device
+`engine_fallbacks` never returns an engine marked `plain`.  A caller who
+asks for `engine="torch"` explicitly gets it; that is a choice, not a
+fallback.  With the port's own engines every chain is empty, so a solve
+makes one attempt; a downgrade happens only for an engine a user
+registers with a chain of its own, as the CPU parity tests do.
 """
 from __future__ import annotations
 
@@ -32,13 +44,16 @@ import torch
 
 __all__ = ["Engine", "TorchEngine", "CudaEngine", "register_engine",
            "resolve_engine", "get_engine", "registered_engines",
-           "default_engine_for"]
+           "default_engine_for", "fallback_chains", "set_fallback_chain",
+           "engine_fallbacks"]
 
 
 class Engine:
     """Base class / protocol for SpTRSV execution engines (module doc)."""
 
     name: str = "abstract"
+    # the plain PyTorch body: never a fallback for a schedule on a card
+    plain: bool = False
     supports_batched_rhs: bool = True
     dtypes: tuple = ("float32", "float64")
     device_types: tuple = ("cpu", "cuda")
@@ -111,6 +126,7 @@ class TorchEngine(Engine):
     """The plain PyTorch body: a loop over steps of gather/dot/scatter."""
 
     name = "torch"
+    plain = True
 
     def compile(self, dsched):
         from .levelset import pad_rhs, solve_levels
@@ -174,6 +190,46 @@ class CudaEngine(Engine):
                         n_carry=n_carry, packed=packed)
 
         return fn
+
+
+# -- fallback chains ----------------------------------------------------------
+
+# engine name -> ordered degradation chain tried when the engine is
+# unavailable or its compile or call raises (module doc).  Empty for both
+# of the port's engines: no engine stands in for the CUDA kernel
+_FALLBACK_CHAINS: dict[str, tuple] = {
+    "cuda": (),
+    "torch": (),
+}
+
+
+def fallback_chains() -> dict:
+    """Copy of the configured name -> chain map."""
+    return dict(_FALLBACK_CHAINS)
+
+
+def set_fallback_chain(name: str, chain) -> None:
+    """Configure the degradation chain for an engine name.  `chain` is an
+    ordered iterable of registered engine names; an empty chain means
+    "fail fast, no downgrade"."""
+    _FALLBACK_CHAINS[name] = tuple(chain)
+
+
+def engine_fallbacks(engine, device="cpu") -> tuple:
+    """The resolved degradation chain for an engine serving a schedule
+    staged on `device`: registered Engine instances, in order, the engine
+    itself excluded.  Names that are not registered are skipped (a chain
+    must never raise during resolution — it is consulted on the failure
+    path), and so, on a CUDA device, is every engine marked `plain`."""
+    on_card = torch.device(device).type == "cuda"
+    out = []
+    for name in _FALLBACK_CHAINS.get(getattr(engine, "name", None), ()):
+        eng = _REGISTRY.get(name)
+        if eng is None or eng is engine or eng in out or \
+                (on_card and getattr(eng, "plain", False)):
+            continue
+        out.append(eng)
+    return tuple(out)
 
 
 # -- registry -----------------------------------------------------------------

@@ -49,10 +49,21 @@ solves with its transpose; `op.transposed()` is the adjoint operator.
 `solve` runs the T-factor preamble on the host, the compiled schedule on
 the device in the schedule dtype (float32 by default), then iteratively
 refines in float64 on the host against the ORIGINAL matrix.  It runs
-under a `SolveGuard`: a non-finite right-hand side, a non-finite solution
-or (under `health="strict"`) a large residual raises
-`NumericalHealthError`.  Nothing is repaired, and no engine stands in for
-a failing one.
+under a `SolveGuard`: a non-finite right-hand side raises
+`NumericalHealthError`; a non-finite solution or (under
+`health="strict"`) a large residual raises it too, unless the policy
+repairs (`"repair"`: refinement through the operator's own engine) or
+falls back (`"fallback"`, and `"repair"` when refinement fails: the
+float64 host reference solve built from the original matrix, always with
+a `HealthRepairWarning`).  The host reference serves CPU-staged
+operators only: on a card the kernel serves the solve or it raises,
+under every policy.  The first solve and every refinement correction go
+through the engine's fallback chain (`engines.engine_fallbacks`), which
+is empty for both of the port's engines and never holds the plain engine
+on a card, so on the card a dead chain raises `EngineFallbackError`.
+What an engine's `available()` or `compile()` raises is memoized on the
+payload; what its compiled callable raises is not, so one failed launch
+does not stop an operator from serving.
 
 Static verification (`repro_torch.analysis`): under a health policy with
 `verify_schedule` (`health="strict"`), `from_csr` audits the transformed
@@ -72,12 +83,11 @@ cached.  A failed certification raises `ScheduleInvariantError` /
 `op.stats` is a view over a metrics registry (`repro_torch.obs`), and
 the build, the value update, the engine compile and the solve open the
 reference's spans (`operator.tune`, `operator.update_values`,
-`engine.compile`, `operator.solve`, `operator.refine`) and events
-(`operator.cache`, `health.violation`) when tracing is on.
+`engine.compile`, `operator.solve`, `engine.solve`, `operator.refine`)
+and events (`operator.cache`, `engine.fallback`, `health.violation`)
+when tracing is on.
 
-Not ported yet (ROADMAP.md, queue 1): `mesh=`, engine fallback chains
-(and their `engine.solve`/`engine.fallback` spans), health repair and the
-host-reference escape hatch.
+Not ported yet (ROADMAP.md, queue 1): `mesh=`.
 """
 from __future__ import annotations
 
@@ -218,9 +228,7 @@ class OperatorStats:
     a half-written record.  The record methods are the reference's;
     `repacks` (the port's own counter, outside `to_dict()`) counts the
     value updates whose new zero set made the SpTRSV kernel's packing run
-    anew.  The port neither falls back nor repairs yet, so nothing calls
-    `record_fallback` or `record_health_action`: `fallbacks`,
-    `fallback_downgrades` and `last_fallback` stay at their initial values.
+    anew.
     """
 
     _COUNTER_FIELDS = (
@@ -296,8 +304,7 @@ class OperatorStats:
 
     def record_fallback(self, last: str, *, new_pair: bool = False) -> None:
         """One downgraded dispatch; `new_pair` marks the first sighting of
-        this (requested, used) pair.  Unused until fallback chains are
-        ported (ROADMAP.md, queue 1)."""
+        this (requested, used) pair."""
         with self._lock:
             self._inst["fallbacks"].inc()
             if new_pair:
@@ -594,8 +601,17 @@ class TriangularOperator:
             op._build_kwargs = dict(build_kwargs, tune=tune)
             if dev.type == "cuda":
                 # pack and stage the sweep's schedules now, so the build
-                # and not the first solve pays the host packing
-                op.device_solve_fn()
+                # and not the first solve pays the host packing; what
+                # packing and staging raise fails the build.  What the
+                # engine's compile raises (a capability check, a failed
+                # build of the kernels) is memoized as a compile failure:
+                # the solves walk the engine's chain and name it
+                op._staged()
+                op._preamble_staged()
+                try:
+                    op.device_solve_fn()
+                except Exception as e:  # noqa: BLE001 - named at solve
+                    op._remember_failure(eng, e)
             _obs.event("operator.cache", source=source, n=L.n_rows,
                        strategy=payload["strategy"])
             return op
@@ -1092,6 +1108,168 @@ class TriangularOperator:
         scale = max(1.0, float(np.abs(b64).max(initial=0.0)))
         return float(np.abs(r).max(initial=0.0)) / scale
 
+    def _reference_solve(self, b: np.ndarray) -> np.ndarray:
+        """Host solve of this sweep in float64 — scipy's
+        `spsolve_triangular` when available, else the port's sequential
+        loop (`reference.solve_csr_seq`) — built directly from the ORIGINAL
+        matrix, so no bad schedule payload or failing engine can poison it.
+        The escape hatch of the "fallback" and "repair" policies on a
+        CPU-staged operator only (never on a card, never the serving path:
+        it is host-sequential and slow); every solve it serves is warned
+        and counted by the caller."""
+        entry = self._runtime.get("ref_system")
+        if entry is None:
+            L_eff, rev = orient_lower(self._L, self.side, self.transpose)
+            try:
+                import scipy.sparse as sp
+                mat = sp.csr_matrix(
+                    (np.asarray(L_eff.data, dtype=np.float64),
+                     L_eff.indices, L_eff.indptr), shape=L_eff.shape)
+                entry = ("scipy", mat, rev)
+            except ImportError:  # pragma: no cover - scipy ships in the env
+                entry = ("seq", L_eff, rev)
+            self._runtime["ref_system"] = entry
+        kind, mat, rev = entry
+        v = np.asarray(b, dtype=np.float64)
+        if rev:
+            v = v[::-1]
+        if kind == "scipy":
+            from scipy.sparse.linalg import spsolve_triangular
+            x = spsolve_triangular(mat, v, lower=True)
+        else:
+            from .reference import solve_csr_seq
+            x = solve_csr_seq(mat, v) if v.ndim == 1 else np.stack(
+                [solve_csr_seq(mat, v[:, j]) for j in range(v.shape[1])],
+                axis=1)
+        return np.asarray(x[::-1] if rev else x, dtype=np.float64)
+
+    def _remember_failure(self, engine, exc: Exception) -> str:
+        """Memoize that `engine` cannot serve this payload on this device
+        (it is unavailable, or its compile raised: a capability check, a
+        failed build or staging of the kernels), so a hot operator does not
+        retry it on every solve.  Returns the reason."""
+        reason = f"{type(exc).__name__}: {exc}"
+        self._runtime.setdefault("engine_failures", {})[engine.name] = reason
+        return reason
+
+    def _fallback_solve(self, v, eng, out_dtype=None):
+        """`_oriented_solve` through `eng`, walking the registry's fallback
+        chain (engines.engine_fallbacks, resolved for this operator's
+        device) when an engine is unavailable or its compile or call
+        raises.  Returns (x, engine_used).
+
+        What `available()` and `compile()` raise is memoized on the shared
+        payload, so a known-broken engine is not re-tried on every solve
+        of a hot operator.  What the compiled callable raises when it is
+        called is not: the next solve tries the engine again, so one
+        failed launch never leaves an operator that cannot serve.  Each
+        downgrade bumps `stats.fallbacks` and warns once per (requested,
+        used) pair; an exhausted chain raises EngineFallbackError naming
+        every attempt and its reason.
+        """
+        from ..core.resilience import EngineFallbackError
+        from .engines import engine_fallbacks
+        failures = self._runtime.setdefault("engine_failures", {})
+        attempts = []
+        for cand in (eng, *engine_fallbacks(eng, device=self.device)):
+            known = failures.get(cand.name)
+            if known is not None:
+                attempts.append((cand.name, f"previously failed ({known})"))
+                continue
+            compiled = False
+            try:
+                if not cand.available():
+                    raise RuntimeError("engine reports unavailable")
+                with _obs.span("engine.solve", engine=cand.name):
+                    self._compiled_fn(cand)
+                    compiled = True
+                    x = self._oriented_solve(v, cand, out_dtype=out_dtype)
+            except Exception as e:  # availability, compile, or the call
+                attempts.append((cand.name, self._remember_failure(cand, e)
+                                 if not compiled else
+                                 f"{type(e).__name__}: {e}"))
+                continue
+            if attempts:            # served, but not by the requested engine
+                self._note_fallback(eng, cand, attempts)
+            return x, cand
+        raise EngineFallbackError(
+            f"TriangularOperator(n={self.n}, engine={eng.name!r})", attempts)
+
+    def _note_fallback(self, requested, used, attempts) -> None:
+        # warn once per (requested, used) pair; `fallbacks` counts every
+        # downgraded dispatch and `fallback_downgrades` only the first
+        # sighting of a pair, matching the warning (OperatorStats doc)
+        warned = self._runtime.setdefault("warned_fallbacks", set())
+        pair = (requested.name, used.name)
+        new_pair = pair not in warned
+        self.stats.record_fallback(f"{requested.name}->{used.name}",
+                                   new_pair=new_pair)
+        _obs.event("engine.fallback", requested=requested.name,
+                   used=used.name, new_pair=new_pair)
+        if new_pair:
+            warned.add(pair)
+            from ..core.resilience import EngineFallbackWarning
+            detail = "; ".join(f"{n}: {r}" for n, r in attempts)
+            warnings.warn(
+                f"engine {requested.name!r} failed, solve downgraded to "
+                f"{used.name!r} [{detail}]", EngineFallbackWarning,
+                stacklevel=4)
+
+    def _health_recover(self, b, x, reason, stage, guard, eng):
+        """Apply the policy's on_nonfinite action to an unhealthy solve:
+        "repair" sanitizes non-finite entries and iteratively refines
+        through the operator's engine chain (on a card, the CUDA kernel),
+        escalating to the host reference after max_repair_rounds;
+        "fallback" goes straight to the reference; anything else (or an
+        unrecoverable solve) raises a typed NumericalHealthError naming
+        what was attempted.  On a card there is no reference step: what
+        the rounds cannot repair raises (fallbacks=["repair"])."""
+        from ..core.resilience import (HealthRepairWarning,
+                                       NumericalHealthError, ResilienceError)
+        policy, st = guard.policy, self.stats
+        st.record_health_event()
+        _obs.event("health.violation", stage=stage, reason=reason)
+        attempted = []
+        if policy.on_nonfinite == "repair":
+            attempted.append("repair")
+            xr = np.where(np.isfinite(x), x, 0.0).astype(np.float64)
+            for _ in range(policy.max_repair_rounds):
+                r = b - self._L.matvec(xr, transpose=self.transpose)
+                if not np.isfinite(r).all():
+                    break
+                try:
+                    xr = xr + self._fallback_solve(r, eng,
+                                                   out_dtype=np.float64)[0]
+                except ResilienceError:
+                    break       # no usable device engine: escalate
+                if not np.isfinite(xr).all():
+                    break       # corrections are poisoned too: escalate
+                resid = self._relative_residual(b, xr)
+                if resid <= policy.residual_tol:
+                    st.record_health_action(f"{stage}:repaired")
+                    warnings.warn(
+                        f"unhealthy solve ({reason}) repaired by iterative "
+                        f"refinement in {guard.where}", HealthRepairWarning,
+                        stacklevel=3)
+                    return xr, resid
+        if policy.on_nonfinite in ("repair", "fallback") and \
+                self.device.type == "cpu":
+            # the host reference stands in for a CPU-staged operator only:
+            # on a card the kernel serves the solve or it raises
+            attempted.append("reference")
+            xref = self._reference_solve(b)
+            if np.isfinite(xref).all():
+                resid = self._relative_residual(b, xref)
+                st.record_health_action(f"{stage}:reference")
+                warnings.warn(
+                    f"unhealthy solve ({reason}) recovered via the host "
+                    f"reference solve in {guard.where}", HealthRepairWarning,
+                    stacklevel=3)
+                return xref, resid
+        st.record_health_action(f"{stage}:raised")
+        raise NumericalHealthError(reason, stage=stage, where=guard.where,
+                                   fallbacks=attempted)
+
     def solve(self, b: np.ndarray, *, engine=None,
               refine_tol: float = 1e-10, max_refine: int = 6,
               health=None) -> np.ndarray:
@@ -1105,15 +1283,36 @@ class TriangularOperator:
         max_refine=0 skips refinement and returns the schedule dtype's
         output (float32 by default).
 
-        health: a HealthPolicy, a named level ("off" | "on" | "strict"), or
-        None for the REPRO_HEALTH_CHECKS default ("on").  A violation
-        raises NumericalHealthError.
+        health: a HealthPolicy, a named level ("off" | "on" | "strict" |
+        "repair" | "fallback"), or None for the REPRO_HEALTH_CHECKS
+        environment default ("on").  Controls the SolveGuard around this
+        solve — a non-finite b raises NumericalHealthError; an unhealthy
+        solution is raised ("on", "strict"), repaired by refinement
+        through the operator's engine ("repair"), or replaced by the
+        float64 host reference solve ("fallback", and "repair" when
+        refinement cannot reach the policy's residual_tol); the first
+        solve and every refinement correction walk the engine's fallback
+        chain, which on a card never holds the plain engine.  An exhausted
+        chain raises EngineFallbackError, except under "repair" and
+        "fallback" on a CPU-staged operator, where the host reference
+        serves the solve with a HealthRepairWarning and
+        stats.last_health_event == "engine:reference".  On a card the
+        host reference never serves: what the kernel cannot serve or
+        the refinement rounds cannot repair raises, under every policy.
+        Health recoveries return float64 regardless of max_refine.
         """
-        from ..core.resilience import (NumericalHealthError, SolveGuard,
+        from ..core.resilience import (EngineFallbackError,
+                                       HealthRepairWarning, SolveGuard,
                                        resolve_health_policy)
         from .engines import resolve_engine
         eng = self._engine if engine is None else \
             resolve_engine(engine, device=self.device)
+        if self.device.type not in getattr(eng, "device_types",
+                                           (self.device.type,)):
+            # the caller's mistake, not an engine failure: no chain
+            raise ValueError(f"engine {eng.name!r} runs on "
+                             f"{tuple(eng.device_types)}, not on "
+                             f"{self.device}")
         policy = resolve_health_policy(health)
         guard = SolveGuard(policy, where=f"TriangularOperator(n={self.n}, "
                                          f"engine={eng.name!r})")
@@ -1126,38 +1325,58 @@ class TriangularOperator:
         t0 = time.perf_counter()
         resid = float("nan")
         rounds = 0
+        served_by_reference = False
         columns = 1 if b.ndim == 1 else b.shape[1]
         with _obs.span("operator.solve", n=self.n, engine=eng.name,
                        columns=columns) as sp:
-            x = self._oriented_solve(
-                b, eng, out_dtype=np.float64 if max_refine > 0 else None)
-            if max_refine > 0:
+            try:
+                x, eng = self._fallback_solve(
+                    b, eng, out_dtype=np.float64 if max_refine > 0 else None)
+            except EngineFallbackError:
+                # no engine of the chain served; only a recovering policy
+                # on a CPU-staged operator may serve the solve from the
+                # host reference, and never silently.  On a card it raises
+                if policy.on_nonfinite == "raise" or \
+                        self.device.type != "cpu":
+                    raise
+                self.stats.record_health_event("engine:reference")
+                warnings.warn(
+                    "every engine in the fallback chain failed; solve served "
+                    f"by the host reference in {guard.where}",
+                    HealthRepairWarning, stacklevel=2)
+                x = self._reference_solve(b)
+                served_by_reference = True
+            if served_by_reference:
+                resid = self._relative_residual(b, x)
+            elif max_refine > 0:    # refinement off => skip the host matvec
                 bscale = max(1.0, float(np.abs(b).max(initial=0.0)))
                 with _obs.span("operator.refine", tol=refine_tol) as rsp:
                     while True:
                         r = b - self._L.matvec(x, transpose=self.transpose)
                         resid = float(np.abs(r).max(initial=0.0)) / bscale
                         if not np.isfinite(resid):
-                            break   # poisoned: the output check raises
+                            break   # poisoned pipeline: corrections would
+                                    # be NaN too — the health action below
+                                    # decides
                         if resid <= refine_tol or rounds >= max_refine:
                             break
-                        x = x + self._oriented_solve(r, eng,
-                                                     out_dtype=np.float64)
+                        x = x + self._fallback_solve(
+                            r, eng, out_dtype=np.float64)[0]
                         rounds += 1
                     rsp.set(rounds=rounds, residual=resid)
-            reason, stage = guard.output_unhealthy(x), "output"
-            if reason is None and policy.residual_check:
-                if not np.isfinite(resid):      # unset (max_refine=0)
-                    resid = self._relative_residual(b, x)
-                reason, stage = guard.residual_unhealthy(resid), "residual"
-            if reason is not None:
-                self.stats.record_health_event(f"{stage}:raised")
-                _obs.event("health.violation", stage=stage, reason=reason)
-                raise NumericalHealthError(reason, stage=stage,
-                                           where=guard.where)
+            if not served_by_reference:
+                reason, stage = guard.output_unhealthy(x), "output"
+                if reason is None and policy.residual_check:
+                    if not np.isfinite(resid):  # nan: unset (max_refine=0)
+                        resid = self._relative_residual(b, x)   # or poisoned
+                    reason, stage = guard.residual_unhealthy(resid), \
+                        "residual"
+                if reason is not None:
+                    x, resid = self._health_recover(b, x, reason, stage,
+                                                    guard, eng)
             ms = (time.perf_counter() - t0) * 1e3
             sp.set(ms=ms, rounds=rounds, engine_used=eng.name,
-                   reference=False)
+                   reference=served_by_reference)
             self.stats.record_solve(ms=ms, columns=columns, rounds=rounds,
                                     residual=resid)
         return x

@@ -8,8 +8,8 @@
   snapshots and Prometheus pages; `OperatorStats` is a view over its
   registry with the reference's fields (plus the port's `repacks`).
 * Spans on the solve path: building, solving and re-binding an operator
-  opens the reference's spans (less `engine.solve`, which belongs to the
-  fallback chain the port does not have), with the same parents.
+  opens the reference's spans, `engine.solve` around each engine attempt
+  of the fallback chain included, with the same parents.
 * The disabled tracer is checked by structure, not by wall time: every
   helper returns the shared NULL_SPAN and no clock is read.
 Float64 Krylov runs take the reference's iterations, so their
@@ -325,18 +325,15 @@ def test_operator_stats_is_the_reference_view_plus_repacks():
 
 # -- spans on the solve path --------------------------------------------------
 
-def _chain(tr, drop=()):
-    """(name, parent's name) of every span, in finishing order; a dropped
-    span is left out and its children hang from its parent."""
+def _chain(tr):
+    """(name, parent's name) of every span, in finishing order."""
     by_id = {s.span_id: s for s in tr.spans()}
 
     def parent(s):
         p = by_id.get(s.parent_id)
-        while p is not None and p.name in drop:
-            p = by_id.get(p.parent_id)
         return None if p is None else p.name
 
-    return [(s.name, parent(s)) for s in tr.spans() if s.name not in drop]
+    return [(s.name, parent(s)) for s in tr.spans()]
 
 
 def test_operator_spans_match_the_reference():
@@ -353,7 +350,7 @@ def test_operator_spans_match_the_reference():
     ref_op.solve(b)
     ref_op.update_values(L_ref.with_data(L_ref.data * 1.25))
     ref_obs.disable()
-    assert _chain(tr) == _chain(ref, drop=("engine.solve",))
+    assert _chain(tr) == _chain(ref)
     for t in (tr, ref):
         events = [n for n, *_ in t.orphan_events()]
         assert events == ["operator.cache"]
