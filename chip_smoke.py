@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--sweep] [--ab DIR ...]
+    python3 chip_smoke.py [--sweep] [--ab DIR ...] [--only sptrsv|spmv]
 
 Run from the repository root on a machine with a CUDA card (it puts
 `src/` on `sys.path` itself).  Phases, in order; any failure exits
@@ -20,18 +20,24 @@ non-zero:
    (`sptrsv_groups_stamped`) on lung2's and torso2's no_rewriting
    schedules; K2 (`sptrsv_groups_multi`) with R in
    {1, 8, 32}; K3 (`sptrsv_levels`) on the carry schedule;
-   K4 (`spmv_ell`) on spd_from_lower(torso2_like(1.0)) and
-   poisson2d_spd(512, 512) in float32 and float64 (lung2's system is
-   left out: its one 2,143-entry row pads the ELL to 234.6 M slots).
+   K4 (`spmv_ell`, which packs the ELL arrays into the kernel's sliced
+   form at its first call and keeps it) on spd_from_lower(torso2_like(1.0))
+   and poisson2d_spd(512, 512) in float32 and float64, and K4 on
+   spd_from_lower(lung2_like(1.0)) packed from its CSR
+   (`pack_sliced_csr`, launched with `spmv_sliced`), held against the
+   plain version over its ELL arrays (one 2,143-entry row pads them to
+   234.8 M slots; built once on the card) and scipy's float64 product.
    Each case prints its error, the kernel's time (CUDA events over 50
    launches after warm-up), the plain version's time (5 runs), the time
    (and, for K4, the profiler's device time) of one cuSPARSE call on the
    same matrix (`torch.triangular_solve` for
    K1-K3, a `sparse_csr_tensor` product for K4; the yardstick, never
-   called by the port) and the bytes/operations bound, and for K1 the
+   called by the port) and the bytes/operations bound, for K1 the
    schedule's steps before and after the packing re-levels it (which
    must equal the DAG's level count), the widest step, the long lanes,
-   µs per step and the packing's host seconds.
+   µs per step and the packing's host seconds, and for K4 its device
+   time with the L2 warm and flushed, the sliced form's slots, fill and
+   long rows, the pack's ms, the first call's and a cache hit's.
 4. Main path: `TriangularOperator.from_csr(L, tune=s)` on the card for
    both matrices and both strategies, then `solve(b)` (refined),
    `solve(b, max_refine=0)`, `solve(B)` for B (n, 8),
@@ -172,12 +178,14 @@ non-zero:
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
 With `--sweep` or `--ab`, phases 3-10 give way to studies of the SpTRSV
-kernel on lung2's
-and torso2's L and IC(0) L^T (R = 1, 8), written to
-chiprun_out/chip_smoke_study.json: `--sweep` times it at every consumer
-count and fits `ROUND_WARPS`, the ratio from which the wrapper sizes the
-block; `--ab DIR ...` times the kernel of other checkouts (another
-commit, or a variant of this one) beside this one's.
+kernel on lung2's and torso2's L and IC(0) L^T (R = 1, 8) and of K4 on
+phase 3's systems, written to chiprun_out/chip_smoke_study.json
+(`--only sptrsv` or `--only spmv` keeps one of the two): `--sweep` times
+K1/K2 at every consumer count and fits `ROUND_WARPS`, the ratio from
+which the wrapper sizes the block, and K4 at every SIGMA x LONG_SLOTS of
+`SPMV_SIGMAS` x `SPMV_LONG_SLOTS`; `--ab DIR ...` times the K1/K2 and K4
+of other checkouts (another commit, or a variant of this one) beside
+this one's, in turns on the same inputs.
 """
 from __future__ import annotations
 
@@ -542,15 +550,55 @@ def spmv_library_ms(A, x: torch.Tensor) -> tuple:
 
 
 def spmv_cases() -> list:
-    """K4's cases: torso2's SPD system (the PCG path's) and a 2-D Poisson
-    grid; lung2's system is left out (its ELL has 234.6 M slots)."""
+    """K4's cases on ELL arrays: torso2's SPD system (the PCG path's) and a
+    2-D Poisson grid."""
     from repro_torch.sparse import generators
     return [("spd_from_lower(torso2_like(1.0))",
              generators.spd_from_lower(generators.torso2_like(1.0), seed=0)),
             ("poisson2d_spd(512,512)", generators.poisson2d_spd(512, 512))]
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host ms of one call of fn(), synchronized before and after:
+    what a caller waits for a lone call."""
+    return 1e3 * float(np.median([synced_s(fn)[1] for _ in range(reps)]))
+
+
+def sliced_row(packed) -> dict:
+    """The sliced form's size: slots stored, fill, long rows, constants."""
+    return {"sliced_slots": packed.slots, "sliced_fill":
+            packed.kept / max(packed.slots, 1), "slices": packed.num_slices,
+            "long_rows": packed.num_long, "sigma": packed.sigma,
+            "long_slots": packed.long_slots}
+
+
+def time_spmv(row: dict, A, x, call, plain, itemsize: int) -> dict:
+    """Time K4's `call` (events over KERNEL_REPS; device ms warm and with
+    the L2 flushed, from the profiler), its plain version, its bound and
+    the cuSPARSE yardstick, into `row`, and log it."""
+    row["ms"] = time_ms(call, KERNEL_REPS)
+    row["kernel_device_ms"] = spmv_device_ms(call)
+    row["kernel_device_ms_cold_l2"] = spmv_device_ms(call, flush=True)
+    row["plain_ms"] = time_ms(plain, PLAIN_REPS, warmup=1)
+    row["bound_ms"], row["bound_by"] = spmv_bound(A.nnz, A.n_rows, itemsize)
+    row["library_ms"], row["library_device_ms"] = spmv_library_ms(A, x)
+    dev_ms = row["kernel_device_ms"]
+    row["bound_share"] = row["bound_ms"] / dev_ms if dev_ms else None
+    log(f"  spmv_ell             {row['case']:42s} D={row['D']:<4d} "
+        f"slots={row['sliced_slots']} fill={row['sliced_fill']:.3f} "
+        f"long={row['long_rows']} err={row['max_rel_err']:.2e} pack_ms="
+        f"{row['pack_ms']:.3f} first_ms={row['first_call_ms']:.3f} "
+        f"hit_ms={row['hit_ms']:.4f} ms={row['ms']:.4f} device_ms={dev_ms} "
+        f"cold_l2_ms={row['kernel_device_ms_cold_l2']} "
+        f"plain_ms={row['plain_ms']:.3f} bound_ms={row['bound_ms']:.5f} "
+        f"({row['bound_by']}) library_ms={row['library_ms']} "
+        f"library_device_ms={row['library_device_ms']}")
+    return row
+
+
 def run_spmv_case(name: str, A, dtype, rng) -> dict:
+    """K4 through its wrapper on ELL arrays: the first call packs the
+    sliced form (timed alone as well), later calls hit its cache."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.solver.levelset import pad_rhs
@@ -560,39 +608,103 @@ def run_spmv_case(name: str, A, dtype, rng) -> dict:
     x = torch.as_tensor(rng.standard_normal(n), dtype=coef.dtype,
                         device=DEVICE)
     x_pad = pad_rhs(x)
+    _, pack_s = synced_s(lambda: S.pack_sliced(idx, coef, n))
     call = lambda: S.spmv_ell(idx, coef, x_pad)
-    y = call()
-    torch.cuda.synchronize()
+    packs = S.SLICE_PACKS["packs"]
+    y, first_s = synced_s(call)
+    check(S.SLICE_PACKS["packs"] == packs + 1, "K4's first call did not pack")
     plain = lambda: ref.spmv_ell_ref(idx, coef, x_pad)
     diff, rel = rel_err(y, plain())
     tol = SPMV_RTOL[coef.dtype]
     check(bool(torch.isfinite(y).all()) and rel <= tol,
           f"spmv_ell on {name} {coef.dtype}: relative error {rel:.3e} > "
           f"{tol:.0e}")
-    ms = time_ms(call, KERNEL_REPS)
-    device_ms = kernel_ms(device_profile(call, KERNEL_REPS),
-                          "spmv_ell_kernel")
-    cold_ms = kernel_ms(device_profile(call, KERNEL_REPS, flush=True),
-                        "spmv_ell_kernel")
-    plain_ms = time_ms(plain, PLAIN_REPS, warmup=1)
-    bound_ms, bound_by = spmv_bound(A.nnz, n, coef.element_size())
-    lib, lib_device = spmv_library_ms(A, x)
+    hit_ms = host_ms(call)
+    check(S.SLICE_PACKS["packs"] == packs + 1, "K4's cache missed a hit")
     dt = str(coef.dtype).replace("torch.", "")
     row = {"kernel": "spmv_ell", "case": f"{name}/{dt}", "R": 1, "n": n,
            "nnz": A.nnz, "D": int(idx.shape[1]),
            "ell_slots": int(idx.numel()), "fill": A.nnz / idx.numel(),
-           "max_abs_err": diff, "max_rel_err": rel, "ms": ms,
-           "kernel_device_ms": device_ms,
-           "kernel_device_ms_cold_l2": cold_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
-           "library_device_ms": lib_device}
-    log(f"  spmv_ell             {row['case']:42s} D={row['D']:<3d} "
-        f"err={rel:.2e} ms={ms:.4f} device_ms={device_ms} "
-        f"cold_l2_ms={cold_ms} "
-        f"plain_ms={plain_ms:.3f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by}) library_ms={lib} "
-        f"library_device_ms={lib_device}")
-    return row
+           **sliced_row(S.sliced_for(idx, coef, n)),
+           "max_abs_err": diff, "max_rel_err": rel,
+           "pack_ms": 1e3 * pack_s, "first_call_ms": 1e3 * first_s,
+           "hit_ms": hit_ms}
+    return time_spmv(row, A, x, call, plain, coef.element_size())
+
+
+def ell_on_card(A, dtypes) -> tuple:
+    """A's ELL arrays built on the card from its CSR (no host copy):
+    (idx, {dtype: coef}, D)."""
+    indptr = np.asarray(A.indptr, dtype=np.int64)
+    deg = np.diff(indptr)
+    D = max(int(deg.max()), 1)
+    n_pad = -(-A.n_rows // 512) * 512
+    flat = torch.as_tensor(np.repeat(np.arange(A.n_rows) * D, deg) +
+                           (np.arange(indptr[-1]) - np.repeat(indptr[:-1],
+                                                              deg)),
+                           device=DEVICE)
+    idx = torch.full((n_pad * D,), A.n_cols, dtype=torch.int32,
+                     device=DEVICE)
+    idx[flat] = torch.as_tensor(A.indices, dtype=torch.int32, device=DEVICE)
+    coefs = {}
+    for dtype in dtypes:
+        c = torch.zeros(n_pad * D, dtype=dtype, device=DEVICE)
+        c[flat] = torch.as_tensor(A.data, dtype=dtype, device=DEVICE)
+        coefs[dtype] = c.view(n_pad, D)
+    return idx.view(n_pad, D), coefs, D
+
+
+def run_spmv_csr_cases(name: str, A, rng) -> list:
+    """K4 on A's sliced form packed from its CSR on the host
+    (`pack_sliced_csr`) and launched with `spmv_sliced`, in float32 and
+    float64: against the plain version over A's ELL arrays, built once on
+    the card, and against scipy's float64 product."""
+    import scipy.sparse as sp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spmv_ell as S
+    from repro_torch.solver.levelset import pad_rhs
+    t0 = time.perf_counter()
+    idx, coefs, D = ell_on_card(A, (torch.float32, torch.float64))
+    torch.cuda.synchronize()
+    ell_s = time.perf_counter() - t0
+    ell_gb = (idx.numel() * 4 + sum(c.numel() * c.element_size()
+                                    for c in coefs.values())) / 1e9
+    log(f"  {name}: ELL arrays {tuple(idx.shape)} built on the card in "
+        f"{ell_s:.2f} s ({ell_gb:.2f} GB, float32 and float64 values)")
+    Asp = sp.csr_matrix((np.asarray(A.data, dtype=np.float64), A.indices,
+                         A.indptr), shape=A.shape)
+    rows = []
+    for dtype, coef in coefs.items():
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        packed, pack_s = synced_s(lambda: S.pack_sliced_csr(
+            A, np_dtype).to(DEVICE))
+        x64 = rng.standard_normal(A.n_rows)
+        x = torch.as_tensor(x64, dtype=dtype, device=DEVICE)
+        x_pad = pad_rhs(x)
+        call = lambda: S.spmv_sliced(packed, x_pad)
+        y, first_s = synced_s(call)
+        plain = lambda: ref.spmv_ell_ref(idx, coef, x_pad)
+        diff, rel = rel_err(y, plain())
+        tol = SPMV_RTOL[dtype]
+        check(bool(torch.isfinite(y).all()) and rel <= tol,
+              f"spmv_sliced on {name} {dtype}: relative error {rel:.3e} > "
+              f"{tol:.0e}")
+        y_sp = Asp @ x.double().cpu().numpy()
+        oracle = float(np.abs(y[:A.n_rows].double().cpu().numpy() - y_sp)
+                       .max()) / max(1.0, float(np.abs(y_sp).max()))
+        check(oracle <= SPMV_ORACLE_RTOL, f"spmv_sliced on {name} {dtype}: "
+              f"error {oracle:.3e} against scipy's float64 product")
+        dt = str(dtype).replace("torch.", "")
+        row = {"kernel": "spmv_ell", "case": f"{name}/{dt}", "R": 1,
+               "n": A.n_rows, "nnz": A.nnz, "D": D,
+               "ell_slots": int(idx.numel()), "fill": A.nnz / idx.numel(),
+               "ell_on_card_s": ell_s, "ell_gb": ell_gb,
+               **sliced_row(packed), "max_abs_err": diff,
+               "max_rel_err": rel, "rel_err_vs_scipy": oracle,
+               "pack_ms": 1e3 * pack_s, "first_call_ms": 1e3 * first_s,
+               "hit_ms": host_ms(call)}
+        rows.append(time_spmv(row, A, x, call, plain, coef.element_size()))
+    return rows
 
 
 def phase_kernels(rng) -> tuple:
@@ -610,9 +722,15 @@ def phase_kernels(rng) -> tuple:
                                  rng))
     rows.append(run_case("sptrsv_levels",
                          by_name["banded(4096,40)/max_deps=4"], 1, rng))
+    t0 = time.perf_counter()
     for name, A in spmv_cases():
         for dtype in (np.float32, np.float64):
             rows.append(run_spmv_case(name, A, dtype, rng))
+    from repro_torch.sparse import generators
+    rows += run_spmv_csr_cases(
+        "spd_from_lower(lung2_like(1.0))",
+        generators.spd_from_lower(generators.lung2_like(1.0), seed=0), rng)
+    log(f"  K4's cases took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -2667,19 +2785,20 @@ def phase_sweep(rng) -> dict:
             "excess_fit": excess(rho)}
 
 
-def load_other(checkout: Path, name: str):
-    """The SpTRSV kernel module of another checkout's `repro_torch`,
-    imported under the package name `name` (its kernel source is built
-    into that checkout's own build/kernels)."""
+def load_other(checkout: Path, name: str, module: str):
+    """A kernel module (`sptrsv_level` or `spmv_ell`) of another checkout's
+    `repro_torch`, imported under the package name `name` (its kernel
+    sources are built into that checkout's own build/kernels)."""
     import importlib
     import importlib.util
-    pkg = checkout.resolve() / "src" / "repro_torch"
-    spec = importlib.util.spec_from_file_location(
-        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module(f"{name}.kernels.sptrsv_level")
+    if name not in sys.modules:
+        pkg = checkout.resolve() / "src" / "repro_torch"
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.kernels.{module}")
 
 
 def phase_ab(dirs: list, rng) -> list:
@@ -2688,7 +2807,8 @@ def phase_ab(dirs: list, rng) -> list:
     schedule its own way; timed in turns (other, this, this, other) and
     held against each other (KERNEL_RTOL, relative to scale)."""
     from repro_torch.kernels import sptrsv_level as K
-    others = [(str(d), load_other(Path(d), f"other{i}_repro_torch"))
+    others = [(str(d), load_other(Path(d), f"other{i}_repro_torch",
+                                  "sptrsv_level"))
               for i, d in enumerate(dirs)]
     rows = []
     for label, sched in study_cases():
@@ -2719,6 +2839,107 @@ def phase_ab(dirs: list, rng) -> list:
                     f"{rows[-1]['threads']} other_ms={t[0]:.4f},{t[3]:.4f}"
                     f" this_ms={t[1]:.4f},{t[2]:.4f} "
                     f"x{rows[-1]['speedup']:.3f} diff={rel:.1e}")
+    return rows
+
+
+def spmv_device_ms(call, flush: bool = False) -> float:
+    """K4's device ms per call from the profiler (KERNEL_REPS calls; with
+    `flush`, the L2 flushed before each): at these sizes the events time
+    the host's launches, not the kernel."""
+    return kernel_ms(device_profile(call, KERNEL_REPS, flush=flush),
+                     "spmv_ell_kernel")
+
+
+def phase_ab_spmv(dirs: list, rng) -> list:
+    """K4 of each other checkout in `dirs` beside this one's, through each
+    one's `spmv_ell` on the same ELL arrays of phase 3's ELL cases, in
+    float32 and float64: results held equal (SPMV_RTOL, relative to
+    scale), then device ms with the L2 warm and flushed, and events ms,
+    timed in turns (other, this, this, other)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spmv_ell as S
+    from repro_torch.solver.levelset import pad_rhs
+    others = [(str(d), load_other(Path(d), f"other{i}_repro_torch",
+                                  "spmv_ell"))
+              for i, d in enumerate(dirs)]
+    rows = []
+    for name, A in spmv_cases():
+        for dtype in (np.float32, np.float64):
+            idx_np, coef_np, n = ops.ell_pack_csr(A, dtype=dtype)
+            idx = torch.as_tensor(idx_np, device=DEVICE)
+            coef = torch.as_tensor(coef_np, device=DEVICE)
+            x_pad = pad_rhs(torch.as_tensor(rng.standard_normal(n),
+                                            dtype=coef.dtype, device=DEVICE))
+            this = lambda: S.spmv_ell(idx, coef, x_pad)
+            y = this()
+            for d, SO in others:
+                other = lambda: SO.spmv_ell(idx, coef, x_pad)
+                _, rel = rel_err(y, other())
+                check(rel <= SPMV_RTOL[coef.dtype], f"{name} {dtype}: {d}'s "
+                      f"K4 differs by {rel:.3e} relative to scale")
+                turns = (other, this, this, other)
+                dev = [spmv_device_ms(f) for f in turns]
+                cold = [spmv_device_ms(f, flush=True) for f in turns]
+                ev = [time_ms(f, KERNEL_REPS) for f in turns]
+                case = f"{name}/{np.dtype(dtype).name}"
+                ratio = lambda t: (t[0] + t[3]) / (t[1] + t[2])
+                rows.append({"other": d, "case": case,
+                             "other_device_ms": [dev[0], dev[3]],
+                             "this_device_ms": [dev[1], dev[2]],
+                             "other_cold_l2_ms": [cold[0], cold[3]],
+                             "this_cold_l2_ms": [cold[1], cold[2]],
+                             "other_ms": [ev[0], ev[3]],
+                             "this_ms": [ev[1], ev[2]], "max_rel_diff": rel,
+                             "speedup_device": ratio(dev),
+                             "speedup_cold_l2": ratio(cold),
+                             "speedup": ratio(ev)})
+                log(f"  ab K4 {d:16s} {case:42s} device other="
+                    f"{dev[0]:.5f},{dev[3]:.5f} this={dev[1]:.5f},"
+                    f"{dev[2]:.5f} x{ratio(dev):.3f}; cold L2 other="
+                    f"{cold[0]:.5f},{cold[3]:.5f} this={cold[1]:.5f},"
+                    f"{cold[2]:.5f} x{ratio(cold):.3f}; events "
+                    f"other={ev[0]:.4f},{ev[3]:.4f} this={ev[1]:.4f},"
+                    f"{ev[2]:.4f} x{ratio(ev):.3f} diff={rel:.1e}")
+    return rows
+
+
+SPMV_SIGMAS, SPMV_LONG_SLOTS = (32, 256, 1024), (32, 64)
+
+
+def phase_sweep_spmv(rng) -> list:
+    """K4's sliced form at every SIGMA x LONG_SLOTS of the sweep, packed
+    from the CSR and launched with `spmv_sliced`, on phase 3's systems
+    (torso2's and lung2's SPD systems, poisson2d 512^2) in float32 and
+    float64: slots stored and device ms (profiler), each result held
+    against the default constants' within SPMV_RTOL."""
+    from repro_torch.kernels import spmv_ell as S
+    from repro_torch.solver.levelset import pad_rhs
+    from repro_torch.sparse import generators
+    systems = spmv_cases() + [(
+        "spd_from_lower(lung2_like(1.0))",
+        generators.spd_from_lower(generators.lung2_like(1.0), seed=0))]
+    rows = []
+    for name, A in systems:
+        for dtype in (np.float32, np.float64):
+            x_pad = pad_rhs(torch.as_tensor(
+                rng.standard_normal(A.n_rows), device=DEVICE,
+                dtype=torch.float32 if dtype == np.float32 else torch.float64))
+            y0 = S.spmv_sliced(S.pack_sliced_csr(A, dtype).to(DEVICE), x_pad)
+            for sigma in SPMV_SIGMAS:
+                for long_slots in SPMV_LONG_SLOTS:
+                    packed = S.pack_sliced_csr(
+                        A, dtype, sigma=sigma,
+                        long_slots=long_slots).to(DEVICE)
+                    call = lambda: S.spmv_sliced(packed, x_pad)
+                    _, rel = rel_err(call(), y0)
+                    check(rel <= SPMV_RTOL[x_pad.dtype], f"sweep {name} "
+                          f"sigma={sigma} long={long_slots}: {rel:.3e}")
+                    ms = spmv_device_ms(call)
+                    rows.append({"case": f"{name}/{np.dtype(dtype).name}",
+                                 **sliced_row(packed), "device_ms": ms})
+                    log(f"  sweep K4 {rows[-1]['case']:42s} sigma={sigma:<4d}"
+                        f" long_slots={long_slots} slots={packed.slots} "
+                        f"long={packed.num_long} device_ms={ms:.5f}")
     return rows
 
 
@@ -2768,11 +2989,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
                     help="only time K1/K2 at every consumer count and fit "
-                         "the block size's ratio ROUND_WARPS")
+                         "the block size's ratio ROUND_WARPS, and K4 at "
+                         "every SIGMA x LONG_SLOTS")
     ap.add_argument("--ab", nargs="+", type=Path, metavar="DIR",
-                    help="only time the K1/K2 of other checkouts (e.g. "
-                         "`git archive <commit> | tar -x -C build/other`) "
-                         "beside this one's")
+                    help="only time the K1/K2 and K4 of other checkouts "
+                         "(e.g. `git archive <commit> | tar -x -C "
+                         "build/other`) beside this one's")
+    ap.add_argument("--only", choices=("sptrsv", "spmv"),
+                    help="with --sweep or --ab: study only K1/K2 "
+                         "(sptrsv) or only K4 (spmv)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2796,12 +3021,20 @@ def run(args, tuned_dir: str) -> int:
     build_s = phase_build()
     if args.sweep or args.ab:
         study = {"card": card}
-        if args.sweep:
+        sptrsv, spmv = args.only in (None, "sptrsv"), args.only in (None,
+                                                                   "spmv")
+        if args.sweep and sptrsv:
             log("== block size sweep")
             study["sweep"] = phase_sweep(rng)
-        if args.ab:
+        if args.sweep and spmv:
+            log("== K4: SIGMA x LONG_SLOTS sweep")
+            study["sweep_spmv"] = phase_sweep_spmv(rng)
+        if args.ab and sptrsv:
             log("== A/B against other checkouts")
             study["ab"] = phase_ab(args.ab, rng)
+        if args.ab and spmv:
+            log("== K4: A/B against other checkouts")
+            study["ab_spmv"] = phase_ab_spmv(args.ab, rng)
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_study.json").write_text(
             json.dumps(study, indent=1))

@@ -1,7 +1,8 @@
 """Host-level wrappers around the kernels.
 
 Port of `repro.kernels.ops`: `sptrsv_solve` over the SpTRSV kernels
-(K1/K2), and `ell_pack_csr` + `spmv_ell` over the ELL SpMV kernel (K4).
+(K1/K2), and `ell_pack_csr` + `spmv_ell` over the ELL SpMV kernel (K4),
+which on a card packs the CSR straight into the kernel's sliced form.
 Each takes the port's `device=` (None = the CUDA card, raising without
 one); on the CPU the kernel wrappers run their plain versions.
 """
@@ -15,6 +16,7 @@ from ..solver.levelset import (pad_rhs, resolve_device, to_device,
                                torch_dtype)
 from ..solver.schedule import LevelSchedule
 from . import ref
+from .spmv_ell import pack_sliced_csr, spmv_sliced
 from .spmv_ell import spmv_ell as spmv_ell_kernel
 
 __all__ = ["sptrsv_solve", "spmv_ell", "ell_pack_csr"]
@@ -69,7 +71,9 @@ def spmv_ell(m, x, *, device=None, use_ref: bool = False,
     x is a numpy array or a torch tensor of m.n_cols entries.  A tensor
     stays on its device and a tensor comes back; a numpy x goes to
     `device` (None = the CUDA card, raising without one) and a numpy y
-    comes back.  The matrix is packed on the host at every call.
+    comes back.  The matrix is packed on the host at every call: on a
+    card straight into the kernel's sliced form (`pack_sliced_csr`, no
+    (n_pad, D) arrays), elsewhere into ELL arrays for the plain version.
     use_ref=True runs the plain version on that device.
     """
     is_tensor = isinstance(x, torch.Tensor)
@@ -82,10 +86,14 @@ def spmv_ell(m, x, *, device=None, use_ref: bool = False,
     xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
     if xt.shape != (m.n_cols,):
         raise ValueError(f"x must be ({m.n_cols},), got {tuple(xt.shape)}")
-    ell_idx, ell_coef, n = ell_pack_csr(m, block_rows=block_rows)
-    idx = torch.from_numpy(ell_idx).to(dev)
-    coef = torch.from_numpy(ell_coef).to(dev)
     x_pad = pad_rhs(xt)
-    y = (ref.spmv_ell_ref(idx, coef, x_pad) if use_ref
-         else spmv_ell_kernel(idx, coef, x_pad))[:n]
+    if dev.type == "cuda" and not use_ref:
+        packed = pack_sliced_csr(m, block_rows=block_rows).to(dev)
+        y = spmv_sliced(packed, x_pad)[:m.n_rows]
+    else:
+        ell_idx, ell_coef, n = ell_pack_csr(m, block_rows=block_rows)
+        idx = torch.from_numpy(ell_idx).to(dev)
+        coef = torch.from_numpy(ell_coef).to(dev)
+        y = (ref.spmv_ell_ref(idx, coef, x_pad) if use_ref
+             else spmv_ell_kernel(idx, coef, x_pad))[:n]
     return y if is_tensor else y.cpu().numpy()
