@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--sweep] [--ab DIR ...] [--only sptrsv|spmv]
+    python3 chip_smoke.py --sharded-rank RANK STORE OUT   (phase 11's own)
 
 Run from the repository root on a machine with a CUDA card (it puts
 `src/` on `sys.path` itself).  Phases, in order; any failure exits
@@ -173,11 +174,39 @@ non-zero:
    engine, the plain version never runs, and the host reference serves
    no solve in phases 4-10.  The phase prints its reference-served and
    repaired solves, its K1, K2 and plain launches and its seconds.
-11. The kernels line and the contract line.
+11. Sharded solves (`solver/distributed.py`), last, since it holds a
+   process group.  First a probe: does gloo take CUDA tensors (a gloo
+   world of one doing the sharded solve's collectives on cuda:0)?  It
+   prints its answer; if yes, two gloo ranks on cuda:0, each a process of
+   its own (`--sharded-rank`), solve lung2_like(1.0) no_rewriting under a
+   two-rank mesh, the default one (CUDA on a card, whatever the backend):
+   x bitwise equal on both, the unrefined sweep within
+   the oracle's gate, the refined within 1e-10 (NCCL refuses two ranks on
+   one card, so it is not tried).  Then an NCCL world of one on a
+   `HashStore`: `from_csr(L, tune=s, mesh=mesh, cache=False)` for
+   lung2_like(1.0) and torso2_like(1.0) under no_rewriting and
+   avgLevelCost, each refined within 1e-10 and unrefined within the
+   oracle's gate, with no packed or staged form of K1's;
+   `count_all_gathers` beside the schedule's steps (families == steps: the
+   paper's claim as barrier counts), and the preamble's; ms per sharded
+   sweep (CUDA events over `SHARDED_REPS`) beside K1's on the same
+   operator (`device_solve_fn(engine="cuda")`, launches not counted);
+   the tuner under the mesh (its default cost model, which charges the
+   preamble's barriers as the main schedule's) must pick, of the two
+   strategies, the one whose sharded sweep measured faster;
+   `profile_schedule(mesh=)` on the no_rewriting schedules (the median
+   collective us per step) and `CostModel.sharded().calibrate` on the
+   two; IC(0)-PCG under one mesh (`Preconditioner.ic0(mesh=)`, the
+   sharded `device_matvec`) on spd_from_lower(lung2_like(1.0), seed=0)
+   to a true residual <= 1e-7; `core.faults.lose_mesh` on a fresh
+   operator, which K1 must serve with one `EngineFallbackWarning` and
+   "sharded->cuda".  The plain version never runs, the host reference
+   serves no solve; the phase prints its seconds.
+12. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
-With `--sweep` or `--ab`, phases 3-10 give way to studies of the SpTRSV
+With `--sweep` or `--ab`, phases 3-11 give way to studies of the SpTRSV
 kernel on lung2's and torso2's L and IC(0) L^T (R = 1, 8) and of K4 on
 phase 3's systems, written to chiprun_out/chip_smoke_study.json
 (`--only sptrsv` or `--only spmv` keeps one of the two): `--sweep` times
@@ -806,7 +835,7 @@ def phase_main_path(rng) -> tuple:
                   f"device_solve_fn error {errd:.3e}")
             sweep_ms = time_ms(lambda: fn(bt), 20)
             psched = op._preamble_host()[0]
-            pre = op._preamble_staged()[0]
+            pre = op._preamble_staged()
             row = {"case": f"{mat}(1.0)/{strat}", "n": n, "nnz": L.nnz,
                    "schedule_steps": op.schedule.num_steps,
                    "steps": op._staged().packed().num_steps,
@@ -2438,6 +2467,10 @@ def phase_static(rng) -> tuple:
 # Picked on the CPU at lung2_like/torso2_like(0.02, 0.1), where 1.01 is
 # repaired in two rounds (residual ~2e-6) and 1.05 is not in three.
 WRONG_REPAIRED, WRONG_UNREPAIRED = 1.01, 3.0
+# phase 11: timed sharded sweeps a case (each takes a fraction of a
+# second), and the limit on its two gloo ranks' processes
+SHARDED_REPS = 3
+SHARDED_RANK_TIMEOUT_S = 420
 
 
 def count_reference_solves() -> dict:
@@ -2943,10 +2976,301 @@ def phase_sweep_spmv(rng) -> list:
     return rows
 
 
+def probe_gloo_cuda() -> dict:
+    """Does gloo take CUDA tensors?  A gloo world of one in this process:
+    the sharded solve's collectives (all_gather into a tensor, all_reduce,
+    an object broadcast) on cuda:0 tensors.  {"ok": bool, "error": str}."""
+    import torch.distributed as dist
+    from repro_torch.solver.distributed import _gather
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        v = torch.arange(6, dtype=torch.float32, device="cuda")
+        g = _gather(v, dist.group.WORLD)
+        r = torch.ones(4, device="cuda")
+        dist.all_reduce(r)
+        box = [{"probe": 1}]
+        dist.broadcast_object_list(box, src=0)
+        ok = bool(torch.equal(g, v)) and g.device.type == "cuda" and \
+            float(r.sum()) == 4.0
+        return {"ok": ok, "error": "" if ok else "wrong values"}
+    except Exception as e:          # noqa: BLE001 - the probe's answer
+        return {"ok": False, "error": f"{type(e).__name__}: {e}"[:300]}
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_rank(rank: int, store: str, out: str) -> int:
+    """One of phase 11's two gloo ranks on cuda:0, in a process of its own:
+    lung2_like(1.0) no_rewriting under a two-rank CUDA mesh, its unrefined
+    and refined answers saved to `out` (.npz)."""
+    import torch.distributed as dist
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.solver.distributed import default_mesh
+    from repro_torch.sparse import generators
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = default_mesh()       # on a card: CUDA, whatever the backend
+        L = generators.lung2_like(1.0)
+        b = np.random.default_rng(SEED).standard_normal(L.n_rows)
+        op, build_s = synced_s(lambda: TriangularOperator.from_csr(
+            L, tune="no_rewriting", mesh=mesh, cache=False))
+        x0, sweep_s = synced_s(lambda: op.solve(b, max_refine=0))
+        x, solve_s = synced_s(lambda: op.solve(b))
+        np.savez(out, x0=x0, x=x, residual=op.stats.last_residual,
+                 rounds=op.stats.refine_rounds, build_s=build_s,
+                 sweep_s=sweep_s, solve_s=solve_s,
+                 device=str(op.device), engine=op.engine)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_two_ranks(tmp: Path) -> dict:
+    """Phase 11's two gloo ranks on the one card (processes of their own,
+    `--sharded-rank`): x bitwise equal across the ranks, the unrefined
+    sweep within the oracle's gate, the refined solve within 1e-10."""
+    from repro_torch.sparse import generators
+    store = tmp / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+         str(r), str(store), str(tmp / f"rank{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=SHARDED_RANK_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    for proc, text in zip(procs, logs):
+        check(proc.returncode == 0, f"a gloo rank on the card exited "
+              f"{proc.returncode}: {text[-2000:]}")
+    ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+    L = generators.lung2_like(1.0)
+    b = np.random.default_rng(SEED).standard_normal(L.n_rows)
+    x_ref = oracle(L, b)
+    err0 = float(np.abs(ranks[0]["x0"] - x_ref).max()) / max(
+        1.0, float(np.abs(x_ref).max()))
+    same = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ("x0", "x"))
+    out = {"case": "lung2_like(1.0)/no_rewriting, 2 gloo ranks on cuda:0",
+           "device": str(ranks[0]["device"]),
+           "engine": str(ranks[0]["engine"]), "bitwise_equal": same,
+           "err_max_refine0": err0,
+           "residual": float(ranks[0]["residual"]),
+           "refine_rounds": int(ranks[0]["rounds"]),
+           "build_s": float(ranks[0]["build_s"]),
+           "sweep_s": float(ranks[0]["sweep_s"]),
+           "solve_s": float(ranks[0]["solve_s"])}
+    check(same, "the two gloo ranks' answers differ")
+    check(out["device"].startswith("cuda") and out["engine"] == "sharded",
+          f"the gloo ranks solved on {out['device']} / {out['engine']}")
+    check(err0 <= ORACLE_RTOL and out["residual"] <= REFINE_TOL,
+          f"two gloo ranks: error {err0:.3e}, residual "
+          f"{out['residual']:.3e}")
+    return out
+
+
+def sharded_case(L, strat: str, mesh, b: np.ndarray) -> tuple:
+    """One from_csr(mesh=) operator of phase 11: its checks, its barrier
+    count, its sweep's ms beside K1's on the same operator.  Returns (row,
+    operator)."""
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.solver import distributed as D
+    x_ref = oracle(L, b)
+    scale = max(1.0, float(np.abs(x_ref).max()))
+    op, build_s = synced_s(lambda: TriangularOperator.from_csr(
+        L, tune=strat, mesh=mesh, cache=False))
+    check(op.device.type == "cuda" and op.engine == "sharded",
+          f"sharded operator on {op.device} / {op.engine}")
+    check("packed" not in op._payload and op._runtime.get("dsched") is None,
+          "a sharded operator packed or staged K1's form")
+    x, solve_s = synced_s(lambda: op.solve(b))
+    resid = op.stats.last_residual
+    check(resid <= REFINE_TOL, f"sharded refined residual {resid:.3e}")
+    x0 = op.solve(b, max_refine=0)
+    err0 = float(np.abs(x0 - x_ref).max()) / scale
+    check(err0 <= ORACLE_RTOL, f"sharded max_refine=0 error {err0:.3e}")
+    g = D.count_all_gathers(op.schedule, mesh)
+    check(g["families"] == g["steps"] == op.schedule.num_steps,
+          f"{g} for a schedule of {op.schedule.num_steps} steps")
+    pre = op._preamble_host()[0]
+    gp = D.count_all_gathers(pre, mesh) if pre is not None else None
+    bt = torch.as_tensor(b, dtype=torch.float32, device=op.device)
+    fn = op.device_solve_fn()
+    sweep_ms = time_ms(lambda: fn(bt), SHARDED_REPS, warmup=1)
+    # K1 on the same operator, for comparison only (its launches are not
+    # the path's; it packs the tiles the sharded engine never reads)
+    k1 = op.device_solve_fn(engine="cuda")
+    k1_ms = counted(lambda: time_ms(lambda: k1(bt), 20))
+    errk = counted(lambda: float((fn(bt) - k1(bt)).abs().max().item())) \
+        / scale
+    row = {"case": f"{L.n_rows}/{strat}", "strategy": strat,
+           "schedule_steps": op.schedule.num_steps,
+           "all_gathers": g, "preamble_all_gathers": gp,
+           "host_build_s": build_s, "solve_refined_s": solve_s,
+           "refine_rounds": op.stats.refine_rounds, "residual": resid,
+           "err_max_refine0": err0, "sharded_vs_k1": errk,
+           "sharded_sweep_ms": sweep_ms, "k1_sweep_ms": k1_ms}
+    check(errk <= KERNEL_RTOL * 10, f"sharded sweep against K1's: {errk:.3e}")
+    return row, op
+
+
+def phase_sharded(rng, refs: dict) -> tuple:
+    """Sharded solves on the card (module doc, phase 11).  Returns (result,
+    launch counts of this path)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import AvgLevelCost, NoRewrite, faults
+    from repro_torch.core.portfolio import (CostModel, StrategyPortfolio,
+                                            default_cost_model_for)
+    from repro_torch.iterative import cg, device_matvec
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.obs.profile import merge_profiles, profile_schedule
+    from repro_torch.precond import Preconditioner
+    from repro_torch.solver import TriangularOperator, sharded_engine
+    from repro_torch.solver import distributed as D
+    from repro_torch.sparse import generators
+    res = {}
+    t0 = time.perf_counter()
+    res["gloo_cuda"] = probe_gloo_cuda()
+    log(f"  gloo takes CUDA tensors: {res['gloo_cuda']['ok']} "
+        f"{res['gloo_cuda']['error']}")
+    if res["gloo_cuda"]["ok"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-ranks-") as tmp:
+            res["two_ranks"] = sharded_two_ranks(Path(tmp))
+        log(f"  {json.dumps(res['two_ranks'])}")
+    res["two_ranks_s"] = time.perf_counter() - t0
+    TriangularOperator.clear_memory_cache()
+    K.reset_launch_counts()
+    r0 = refs["calls"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = D.default_mesh()
+        check(mesh.device_type == "cuda", f"an NCCL mesh of {mesh}")
+        rows, profiles = [], []
+        mats = {m: getattr(generators, m)(1.0)
+                for m in ("lung2_like", "torso2_like")}
+        for mat, L in mats.items():
+            b = rng.standard_normal(L.n_rows)
+            for strat in ("no_rewriting", "avgLevelCost"):
+                row, op = sharded_case(L, strat, mesh, b)
+                row["case"] = f"{mat}(1.0)/{strat}"
+                rows.append(row)
+                log(f"  {row['case']:30s} steps={row['schedule_steps']} "
+                    f"all_gathers={row['all_gathers']} preamble="
+                    f"{row['preamble_all_gathers']} resid="
+                    f"{row['residual']:.2e} err0={row['err_max_refine0']:.2e}"
+                    f" vs_k1={row['sharded_vs_k1']:.2e} sharded_ms="
+                    f"{row['sharded_sweep_ms']:.3f} k1_ms="
+                    f"{row['k1_sweep_ms']:.4f} build_s="
+                    f"{row['host_build_s']:.2f}")
+                if strat == "no_rewriting":
+                    prof = profile_schedule(op.schedule, b, mesh=mesh,
+                                            reps=2, warmup=1)
+                    profiles.append(prof)
+                    row["collective_us_per_step_median"] = float(
+                        np.median(prof.collective_ms)) * 1e3
+                    row["step_us_median"] = float(
+                        np.median(prof.step_ms)) * 1e3
+        res["operators"] = rows
+        # the tuner's model under the card's mesh charges the preamble's
+        # barriers as the main schedule's: of the two strategies it picks
+        # the one whose sharded sweep measured faster above
+        eng = sharded_engine(mesh)
+        res["tuner"] = {}
+        for mat, L in mats.items():
+            rep = StrategyPortfolio(
+                candidates=[NoRewrite(), AvgLevelCost()], engine=eng,
+                device=D.mesh_device(mesh),
+                cost_model=default_cost_model_for(eng)).tune(L)
+            ms = {r["strategy"]: r["sharded_sweep_ms"] for r in rows
+                  if r["case"].startswith(mat)}
+            res["tuner"][mat] = {
+                "pick": rep.best.label,
+                "barriers": {c.label: c.steps + c.preamble_steps
+                             for c in rep.candidates},
+                "predicted_us": {c.label: c.predicted_us
+                                 for c in rep.candidates},
+                "measured_ms": ms}
+            log(f"  tuner under the mesh, {mat}: "
+                f"{json.dumps(res['tuner'][mat])}")
+            check(rep.best.label == min(ms, key=ms.get),
+                  f"the sharded tuner picked {rep.best.label} on {mat}, "
+                  f"the slower sweep: {ms}")
+        fit = CostModel.sharded().calibrate(merge_profiles(profiles))
+        res["calibrated"] = dataclasses.asdict(fit)
+        log(f"  collective us per step (median): "
+            f"{[r.get('collective_us_per_step_median') for r in rows]}; "
+            f"CostModel.sharded().calibrate: collective "
+            f"{fit.collective_latency_us:.3f} us, step "
+            f"{fit.step_overhead_us:.3f} us")
+        # IC(0)-PCG under one mesh: the sharded matvec and both sweeps
+        A = generators.spd_from_lower(mats["lung2_like"], seed=0)
+        x_true = rng.standard_normal(A.n_rows)
+        b_np = A.matvec(x_true)
+        bt = torch.as_tensor(b_np, device="cuda")
+        P, build_s = synced_s(lambda: Preconditioner.ic0(
+            A, tune="no_rewriting", mesh=mesh, cache=False))
+        mv = device_matvec(A, mesh=mesh)
+        sol, pcg_s = synced_s(lambda: cg(mv, bt, preconditioner=P,
+                                         tol=PCG_TOL, maxiter=PCG_MAXITER))
+        resid = true_residual(A, sol.x, b_np)
+        res["pcg"] = {"case": "spd_from_lower(lung2_like(1.0))/ic0/"
+                              "no_rewriting",
+                      "engines": [P.forward.engine, P.backward.engine],
+                      "schedule_steps": [P.forward.schedule.num_steps,
+                                         P.backward.schedule.num_steps],
+                      "iterations": int(sol.iterations),
+                      "converged": bool(sol.converged),
+                      "true_residual": resid, "solve_s": pcg_s,
+                      "host_ic0_and_build_s": build_s}
+        log(f"  {json.dumps(res['pcg'])}")
+        check(res["pcg"]["engines"] == ["sharded", "sharded"]
+              and bool(sol.converged) and resid <= PCG_TRUE_RESID,
+              f"sharded PCG: {res['pcg']}")
+        # a lost mesh on a card: K1 serves, warned, "sharded->cuda"
+        L = mats["lung2_like"]
+        b = rng.standard_normal(L.n_rows)
+        with faults.lose_mesh():
+            op = TriangularOperator.from_csr(L, tune="no_rewriting",
+                                             mesh=mesh, cache=False)
+            before = K.LAUNCHES["sptrsv_groups"]
+            x, warned = recorded(lambda: op.solve(b))
+        check(not isinstance(x, Exception), f"lost mesh: {x!r}")
+        resid = op.stats.last_residual
+        res["lost_mesh"] = {"last_fallback": op.stats.last_fallback,
+                            "warnings": warned, "residual": resid,
+                            "k1_launches": K.LAUNCHES["sptrsv_groups"]
+                            - before}
+        log(f"  lost mesh: {json.dumps(res['lost_mesh'])}")
+        check(op.stats.last_fallback == "sharded->cuda"
+              and warned.get("EngineFallbackWarning") == 1
+              and res["lost_mesh"]["k1_launches"] > 0
+              and resid <= REFINE_TOL, f"lost mesh: {res['lost_mesh']}")
+    finally:
+        dist.destroy_process_group()
+    counts = dict(K.LAUNCHES)
+    res["reference_solves"] = refs["calls"] - r0
+    log(f"  launches on the sharded path: {counts}; host reference solves "
+        f"{res['reference_solves']}")
+    check(counts["plain"] == 0,
+          f"the plain version ran on the sharded path: {counts}")
+    check(res["reference_solves"] == 0, f"the host reference served "
+          f"{res['reference_solves']} solves of a card's operator")
+    return res, counts
+
+
 def kernels_line(krows: list, *path_counts: dict,
                  served_err: dict | None = None) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the main paths (phases 4 to 10)."""
+    launches summed over the main paths (phases 4 to 11)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -2998,11 +3322,18 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("sptrsv", "spmv"),
                     help="with --sweep or --ab: study only K1/K2 "
                          "(sptrsv) or only K4 (spmv)")
+    ap.add_argument("--sharded-rank", nargs=3,
+                    metavar=("RANK", "STORE", "OUT"),
+                    help="run one of phase 11's two gloo ranks (started "
+                         "by phase 11 itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if args.sharded_rank:
+        rank, store, out = args.sharded_rank
+        return sharded_rank(int(rank), store, out)
     # the operators' disk cache goes to a directory of this run's own,
     # removed at its end; phase 6 leaves its tuned torso2 operator in
     # `tuned_dir` for phase 7's new process
@@ -3076,8 +3407,14 @@ def run(args, tuned_dir: str) -> int:
     resil, resil_counts = phase_resilience(rng, refs)
     resil["seconds"] = time.perf_counter() - t10
     log(f"  phase 10 took {resil['seconds']:.1f} s")
+    log("== 11. sharded solves")
+    t11 = time.perf_counter()
+    shard, shard_counts = phase_sharded(rng, refs)
+    shard["seconds"] = time.perf_counter() - t11
+    log(f"  phase 11 took {shard['seconds']:.1f} s")
     line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts,
                         serve_counts, static_counts, resil_counts,
+                        shard_counts,
                         served_err=serve["kernels_vs_plain_max_abs_err"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3089,7 +3426,8 @@ def run(args, tuned_dir: str) -> int:
          "life_cycle_launches": life_counts, "serving": serve,
          "serving_launches": serve_counts, "static": static,
          "static_launches": static_counts, "resilience": resil,
-         "resilience_launches": resil_counts, "kernels_line": line,
+         "resilience_launches": resil_counts, "sharded": shard,
+         "sharded_launches": shard_counts, "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(card["nvidia_smi"])

@@ -61,9 +61,9 @@ port adds:
 `verify_level_schedule` (one implementation); strict-mode operator
 builds call the verifiers once per built artifact and keep the
 certificates on the cached payload, so cache hits re-verify nothing.
-Not ported yet: the sharded lowering's collective check
-(`verify_collectives`, `collectives=True`), which waits for
-`solver/distributed.py` (ROADMAP.md, queue 1 item 4).
+`verify_collectives` (`collectives=True`) certifies the sharded
+lowering's collective structure through `solver.distributed.
+count_all_gathers`: one all_gather family per schedule step.
 """
 from __future__ import annotations
 
@@ -500,13 +500,17 @@ def _critical_path_and_edges(sched, fin_step, devices: int):
 
 
 def verify_collectives(sched, mesh=None, axis: str = "model") -> int:
-    """Certify one all_gather family per step of the sharded lowering.
-    The port has no sharded lowering yet (`solver/distributed.py`,
-    ROADMAP.md queue 1 item 4), so this raises NotImplementedError."""
-    raise NotImplementedError(
-        "verify_collectives: the sharded lowering (solver/distributed.py) "
-        "is not part of the port yet, so there are no collectives to "
-        "certify")
+    """Certify one all_gather family per step of the sharded lowering
+    (the sharded engine's synchronization invariant), counted by
+    `solver.distributed.count_all_gathers` over `mesh`'s `axis` (None: a
+    mesh of one rank).  Returns the family count."""
+    from ..solver.distributed import count_all_gathers
+    g = count_all_gathers(_host(sched), mesh=mesh, axis=axis)
+    if g["families"] != g["steps"]:
+        _fail(f"sharded lowering issued collectives in {g['families']} of "
+              f"{g['steps']} steps — not one family per step ({g})",
+              check="collectives", where="verify_collectives")
+    return int(g["families"])
 
 
 def verify_level_schedule(sched, A=None, diag=None, *, devices: int = 1,
@@ -523,8 +527,8 @@ def verify_level_schedule(sched, A=None, diag=None, *, devices: int = 1,
     devices:   compute `cross_device_edges` for block lane sharding over
                this many devices (1 = single device, 0 edges).
     collectives: additionally certify one all_gather family per step of
-               the sharded lowering; raises NotImplementedError until
-               `solver/distributed.py` is ported (off by default).
+               the sharded lowering over `mesh`'s `mesh_axis` (None: a
+               mesh of one rank; off by default).
     Raises ScheduleInvariantError (a ResilienceError) on the first
     violation, naming the check, step, and lane.
     """
@@ -689,18 +693,21 @@ def audit_transformed_system(ts, *, where: str = "audit_transformed_system"
 
 
 def verify_operator_payload(payload: dict, *, devices: int = 1,
-                            collectives: bool = False,
+                            collectives: bool = False, mesh=None,
+                            mesh_axis: str = "model",
                             where: str = "verify_operator_payload"
                             ) -> ScheduleCertificate:
     """Verify one TriangularOperator payload end to end: audit the
-    transformed system, then certify its schedule against ts.A/ts.diag.
-    The certificate is stashed under payload["certificate"], so cached
-    artifacts carry their proof and are never re-verified."""
+    transformed system, then certify its schedule against ts.A/ts.diag
+    (and with `collectives`, its sharded lowering over `mesh`'s
+    `mesh_axis`, or a mesh of one rank).  The certificate is stashed under
+    payload["certificate"], so cached artifacts carry their proof and are
+    never re-verified."""
     ts = payload["ts"]
     audit_transformed_system(ts, where=where)
     cert = verify_level_schedule(payload["sched"], ts.A, ts.diag,
                                  devices=devices, collectives=collectives,
-                                 where=where)
+                                 mesh=mesh, mesh_axis=mesh_axis, where=where)
     payload["certificate"] = cert
     return cert
 

@@ -14,7 +14,9 @@ repair and host-reference paths) or raises a typed, actionable error:
 * runtime faults — an engine whose compile fails (`fail_engine_compile`)
   or that reports itself unavailable (`engine_unavailable`), a failing or
   stalled tuner (`fail_tuner`, `slow_tuner`), corrupt disk-cache entries
-  (`corrupt_cache_entries`), a stalled profiler step (`slow_step`).
+  (`corrupt_cache_entries`), a stalled profiler step (`slow_step`), a
+  lost mesh (`lose_mesh`: the sharded lowering fails, and a sharded
+  operator falls back to K1 on a card, to the plain body on the CPU).
 
     from repro_torch.core import faults
 
@@ -34,14 +36,12 @@ repair and host-reference paths) or raises a typed, actionable error:
 Injectors patch the port's own seams (`solver.schedule.
 schedule_for_transformed`, `solver.schedule.repack_schedule_values`,
 `core.transform.transform`, the engine registry's instances,
-`StrategyPortfolio.tune`, `obs.profile._STEP_FAULT`) — never torch or
+`StrategyPortfolio.tune`, `obs.profile._STEP_FAULT`,
+`solver.distributed.lower_sharded`) — never torch or
 numpy — so a fault is scoped, deterministic, and cannot leak outside the
 context.  The schedule faults reach the SpTRSV kernel's packed tiles on a
 card, since the operator packs the schedule they return.  They are test
 and tooling utilities: nothing in the serving path imports this module.
-
-Not ported yet (ROADMAP.md, queue 1 item 4, with the sharded solves):
-`lose_mesh`.
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ __all__ = [
     "poison_schedule", "scale_schedule", "nan_schedule_payload",
     "wrong_schedule_values", "corrupt_values_payload", "pattern_drift",
     "corrupt_cache_entries", "fail_engine_compile", "engine_unavailable",
-    "fail_tuner", "slow_tuner", "slow_step",
+    "fail_tuner", "slow_tuner", "slow_step", "lose_mesh",
     # static defects the analysis verifier must reject
     "swap_schedule_steps", "duplicate_schedule_row", "oob_schedule_index",
     "corrupt_plan", "reorder_schedule_step", "duplicate_lane_row",
@@ -483,3 +483,24 @@ def slow_step(step_idx: int, seconds: float):
     fault does not reach it."""
     from ..obs import profile as _prof
     return _patched(_prof, "_STEP_FAULT", (int(step_idx), float(seconds)))
+
+
+# -- mesh faults --------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def lose_mesh(exc=None):
+    """Sharded lowering fails as if the mesh's devices were lost: every
+    `solver.distributed.lower_sharded` call inside the context raises.
+    Schedules the sharded engine lowered BEFORE the fault keep their
+    memoized callables — a real device loss also only breaks new work,
+    which is exactly what the fallback chain must cover (K1 on a card,
+    the plain body on the CPU)."""
+    from ..solver import distributed as _dist
+
+    def faulty(*args, **kwargs):
+        raise (exc if exc is not None else RuntimeError(
+            "injected mesh device loss: sharded lowering unavailable"))
+
+    with _patched(_dist, "lower_sharded", faulty):
+        yield

@@ -15,7 +15,9 @@ Cost model (per solve, microseconds; all constants calibratable):
     preamble = nnz_T * us_per_preamble_nnz
              + preamble_steps * us_per_preamble_step
     launches = launches * us_per_launch
-    total    = main + preamble + launches (+ steps * collective_latency_us)
+    total    = main + preamble + launches
+             (+ barriers * collective_latency_us; barriers = steps, or
+                the sharded engine's steps + preamble_steps)
 
 What a step is, and which flops and bytes a sweep moves, is the serving
 engine's to say (`Engine.sweep_shape`): the plain "torch" engine runs the
@@ -43,8 +45,18 @@ raises on the host is reported as failed; a failure on the card raises.
 `portfolio_tunes`, `portfolio_candidate_failures` and
 `portfolio_measure_notes` in `repro_torch.obs.default_registry()`.
 
-Not ported yet: the sharded engine the collective term prices (sharded
-solves).
+Under a sharded engine (`mesh=`) every step of the schedule and of its
+preamble is one all_gather family, so `CostModel.sharded()` charges each
+of them `collective_latency_us` (the engine's sweep shape counts them as
+`"barriers"`), and `default_cost_model_for` returns it for a sharded
+engine: its base is the CPU's constants on a CPU mesh and the sharded
+path's measured step on a CUDA mesh, each charging a preamble step as a
+main one.  Its sweep shape is the padded schedule's.  Measured mode
+under a mesh of more than one rank times on every rank, and the axis'
+first rank decides: its samples, its stop at the deadline and its
+outlier re-measurement are broadcast (`solver.distributed.agree`), so
+every rank ranks the same candidates the same way and builds the same
+schedule.
 """
 from __future__ import annotations
 
@@ -107,6 +119,13 @@ H100_LAUNCH_US = 61.055538
 CPU_STEP_US = 27.03
 CPU_US_PER_FLOP = 0.0
 CPU_US_PER_BYTE = 0.0
+# The sharded path's compute a step on the H100 (ShardedEngine on a CUDA
+# mesh: the plain step body's torch launches, host-bound), from
+# chip_smoke.py phase 11 on an NVIDIA H100 80GB HBM3, 700.00 W, an NCCL
+# world of one: lung2_like(1.0) no_rewriting's median profiled step
+# (286.386 us) less its median collective (125.297 us).  Its flops and
+# bytes a step cost nothing measurable beside that.
+H100_SHARDED_STEP_US = 161.088
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,8 +136,9 @@ class CostModel:
     preamble charged by nothing; `default_cost_model_for` adds the terms
     the serving engine pays.  `us_per_preamble_step` charges each step of
     the T-factor preamble's own schedule, `us_per_launch` each launch of a
-    sweep (host time), `collective_latency_us` each step of a sharded
-    sweep (not ported yet).
+    sweep (host time), `collective_latency_us` each barrier of a sharded
+    sweep (`sharded()`): one a step of the schedule and, where the
+    engine's sweep shape counts them (`"barriers"`), of its preamble's.
     """
 
     step_overhead_us: float = H100_STEP_US
@@ -128,6 +148,20 @@ class CostModel:
     collective_latency_us: float = 0.0
     us_per_preamble_step: float = 0.0
     us_per_launch: float = 0.0
+
+    @classmethod
+    def sharded(cls, collective_latency_us: float = 5.0,
+                base: "CostModel | None" = None) -> "CostModel":
+        """`base` (default: `CostModel()`, the card's per-step constants)
+        plus a per-barrier collective charge: the model for ShardedEngine
+        serving, where every schedule step is one synchronization barrier
+        across the mesh.  The 5 us default is the reference's; calibrate
+        it for the fabric (`calibrate` on a profile with a collective
+        split).  `default_cost_model_for` gives a sharded engine this
+        over the sharded path's own per-step constants."""
+        return dataclasses.replace(
+            base if base is not None else cls(),
+            collective_latency_us=collective_latency_us)
 
     def calibrate(self, profile) -> "CostModel":
         """Refit the per-step constants from a measured `ScheduleProfile`
@@ -217,7 +251,10 @@ class CostModel:
         bytes_us = shape["memory_bytes"] * self.us_per_byte
         pre_us = metrics.nnz_T * self.us_per_preamble_nnz + \
             shape["preamble_steps"] * self.us_per_preamble_step
-        coll_us = shape["steps"] * self.collective_latency_us
+        # the sharded engine's shape counts its preamble's barriers too;
+        # any other is charged the reference's way, one a main step
+        coll_us = shape.get("barriers", shape["steps"]) * \
+            self.collective_latency_us
         launch_us = shape["launches"] * self.us_per_launch
         return {
             "steps_us": steps_us, "flops_us": flops_us,
@@ -234,14 +271,28 @@ CPU_COST_MODEL = CostModel(step_overhead_us=CPU_STEP_US,
                            us_per_padded_flop=CPU_US_PER_FLOP,
                            us_per_byte=CPU_US_PER_BYTE,
                            us_per_preamble_step=CPU_STEP_US)
+# the base of a sharded engine's model on a CUDA mesh: every step of the
+# schedule and of its preamble runs the same step body
+SHARDED_CUDA_BASE = CostModel(step_overhead_us=H100_SHARDED_STEP_US,
+                              us_per_padded_flop=0.0, us_per_byte=0.0,
+                              us_per_preamble_step=H100_SHARDED_STEP_US)
 
 
 def default_cost_model_for(engine) -> CostModel:
     """The auto-tune cost model an engine implies when the caller passes
-    none: the card's constants for "cuda", the CPU's for "torch"
-    (`CostModel()` for an engine the port has no constants for).  The ONE
-    definition both facades (`TriangularOperator.from_csr` and
-    `Preconditioner._pair_decision`) consult."""
+    none: `CostModel.sharded()` for a sharded engine, over the CPU's
+    constants on a CPU mesh and the sharded path's on a CUDA mesh (both
+    charge the preamble's steps as the main schedule's), the card's
+    constants for "cuda", the CPU's for
+    "torch" (`CostModel()` for an engine the port has no constants for).
+    The ONE definition both facades (`TriangularOperator.from_csr` and
+    `Preconditioner._pair_decision`) consult, so operator-level and
+    pair-level tuning rank with the same objective."""
+    from ..solver.engines import ShardedEngine
+    if isinstance(engine, ShardedEngine):
+        cpu = engine.resolve_mesh().device_type == "cpu"
+        return CostModel.sharded(
+            base=CPU_COST_MODEL if cpu else SHARDED_CUDA_BASE)
     name = engine if isinstance(engine, str) else getattr(engine, "name",
                                                           None)
     if name == "cuda":
@@ -603,7 +654,7 @@ class StrategyPortfolio:
                 fn(b)
                 _synchronize(dev)
                 out.append((time.perf_counter() - t0) * 1e6)
-                if time.perf_counter() >= deadline:
+                if self.engine.agree(time.perf_counter() >= deadline):
                     break
             return out
 
@@ -613,13 +664,15 @@ class StrategyPortfolio:
         if len(samples) < self.measure_iters:
             note = (f"timeout: {len(samples)}/{self.measure_iters} reps "
                     f"within {self.measure_timeout_s:g}s")
-        elif max(samples) > self.measure_outlier_ratio * min(samples):
-            spread = max(samples) / min(samples)
+        elif self.engine.agree(
+                max(samples) > self.measure_outlier_ratio * min(samples)):
+            spread = self.engine.agree(max(samples) / min(samples))
             samples += sample_until(
                 time.perf_counter() + self.measure_timeout_s)
             note = (f"outliers (spread {spread:.1f}x > "
                     f"{self.measure_outlier_ratio:g}x): re-measured, "
                     f"{len(samples)} samples pooled")
+        samples = self.engine.agree(samples)
         cand.measured_us = min(samples)
         cand.measure_note = note
         return cand.measured_us

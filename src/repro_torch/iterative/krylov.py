@@ -19,7 +19,13 @@ Solver contract
   converge independently (per-column masking), so one schedule streams
   all k columns.
 * Devices: a torch `b` keeps its device; a numpy `b` goes to `device`
-  (None = the CUDA card, raising without one).  A preconditioner (or x0)
+  (None = the CUDA card, raising without one, or the mesh's device under
+  `mesh=`).
+* `mesh=` (a DeviceMesh, with `mesh_axis=`) turns a CSR `matvec` into the
+  sharded SpMV (one all_reduce per matvec); with a preconditioner built
+  under the same mesh the whole solve runs under one mesh.  Every rank
+  calls the solver with the same b and gets the same x: the loop's
+  decisions come from replicated tensors.  A preconditioner (or x0)
   on another device than b raises.  The iteration runs in b's dtype: a
   float64 b gives float64 iterations around the float32 sweeps of M^-1.
 * Each `lax.while_loop` of the reference is a Python loop with the same
@@ -126,12 +132,16 @@ def _same_device(t: torch.Tensor, device) -> bool:
     return torch.device(device).type == t.device.type
 
 
-def _prepare(matvec, preconditioner, b, x0, tol, atol, device):
+def _prepare(matvec, preconditioner, b, x0, tol, atol, device, mesh=None,
+             mesh_axis: str = "model"):
     """Shared setup: resolve operators and the device, initial x/r and the
     convergence target."""
     from ..solver.levelset import resolve_device
-    A = as_matvec(matvec)
+    A = as_matvec(matvec, mesh=mesh, axis=mesh_axis)
     M = as_preconditioner(preconditioner)
+    if mesh is not None and device is None:
+        from ..solver.distributed import mesh_device
+        device = mesh_device(mesh)
     if isinstance(b, torch.Tensor):
         if device is not None and not _same_device(b, device):
             raise ValueError(f"b lies on {b.device}, not on {device}")
@@ -209,14 +219,15 @@ def _running(it: int, maxiter: int, done, brk) -> bool:
 
 def cg(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
        atol: float = 0.0, maxiter: int | None = None,
-       device=None) -> SolveResult:
+       device=None, mesh=None,
+       mesh_axis: str = "model") -> SolveResult:
     """Preconditioned conjugate gradient for SPD systems.
 
     matvec/preconditioner: see module doc (M^-1 must be SPD — ic0 is).
     maxiter: history length and iteration cap; defaults to n.
     """
     A, M, b, x, r, target = _prepare(matvec, preconditioner, b, x0, tol,
-                                     atol, device)
+                                     atol, device, mesh, mesh_axis)
     n = b.shape[0]
     maxiter = n if maxiter is None else int(maxiter)
     batch = tuple(b.shape[1:])
@@ -260,7 +271,8 @@ def cg(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
 
 def bicgstab(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
              atol: float = 0.0, maxiter: int | None = None,
-             device=None) -> SolveResult:
+             device=None, mesh=None,
+             mesh_axis: str = "model") -> SolveResult:
     """Preconditioned BiCGStab for general (nonsymmetric) systems.
 
     Right-preconditioned van der Vorst form: two matvecs and two M^-1
@@ -269,7 +281,7 @@ def bicgstab(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
     column with converged=False.
     """
     A, M, b, x, r, target = _prepare(matvec, preconditioner, b, x0, tol,
-                                     atol, device)
+                                     atol, device, mesh, mesh_axis)
     n = b.shape[0]
     maxiter = n if maxiter is None else int(maxiter)
     batch = tuple(b.shape[1:])
@@ -331,7 +343,8 @@ def bicgstab(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
 
 def gmres(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
           atol: float = 0.0, restart: int = 30, maxiter: int | None = None,
-          device=None) -> SolveResult:
+          device=None, mesh=None,
+          mesh_axis: str = "model") -> SolveResult:
     """Restarted GMRES(m) for general systems, left-preconditioned.
 
     Arnoldi with twice-iterated classical Gram-Schmidt (CGS2, vectorized
@@ -349,7 +362,7 @@ def gmres(matvec, b, *, preconditioner=None, x0=None, tol: float = 1e-8,
     # _prepare's target tracks the UNpreconditioned rhs; gmres replaces it
     # below with the preconditioned one (left-preconditioned iteration)
     A, M, b, x, _r0, _ = _prepare(matvec, preconditioner, b, x0, tol, atol,
-                                  device)
+                                  device, mesh, mesh_axis)
     n = b.shape[0]
     m = max(1, min(int(restart), n))
     maxiter = max(1, math.ceil(n / m)) if maxiter is None else int(maxiter)

@@ -24,20 +24,30 @@ fits them to one.  Two engines, two methods:
   The profile also measures the host's time per launch (`launch_us`: the
   time to enqueue a served solve, the card running behind, over its
   launches), which `calibrate` turns into the per-launch charge.
+* **"sharded" (a mesh, on its device).**  As the reference does: the
+  padded schedule runs one step at a time through the sharded step body
+  (`distributed._step_update`) on this rank's lane block, each step
+  synchronized (the card's stream too) and timed, twice: a "full" pass
+  with the per-step all_gather family, and a "compute" pass whose gather
+  is the identity (the same per-step work, no collective; its x is
+  discarded).  `collective_ms` is their difference per step, which
+  `calibrate` turns into `collective_latency_us`.  Every rank of the
+  mesh must profile together (the full pass runs the collectives).
 
 `ProfilingEngine` wraps an engine with this loop behind the standard
 Engine protocol (opt-in: a measurement tool, not a serving path), exposing
 `last_profile` after each solve: with no base engine it steps through the
 plain torch loop; over the "cuda" engine every solve it serves is one run
-of K1's stamped form.
+of K1's stamped form; over a ShardedEngine it routes the engine's mesh and
+axis through (the collective split).  `profile_operator` does the same for
+an operator whose engine is sharded.
 
 Clocks are injected (`clock=time.perf_counter` by default) for both
 methods: the CPU's step times and the card's host time per launch.  The
 step-wise loop has the reference's `_STEP_FAULT` seam, which
 `core.faults.slow_step` sets to stall one step of every timed pass; the
 stamped form is one launch, so no host stall can land inside one of its
-steps.  Not ported yet: the sharded path's collective split (ROADMAP.md,
-queue 1: sharded solves).
+steps.
 """
 from __future__ import annotations
 
@@ -68,12 +78,12 @@ def _fire_step_fault(s: int) -> None:
 class ScheduleProfile:
     """One profiled execution of a schedule (module doc).
 
-    `step_ms` is min-over-reps per step; `collective_ms` is None (no
-    sharded path yet); the flop/byte columns are the steps the engine
-    executed.  On the card: `launch_us` is the host's time per launch,
-    `event_ms` the stamped tile kernel's event time, `stamped_ms` the sum
-    of its steps' stamps, `clock_mhz` the rate its cycles ran at (all None
-    on the CPU).
+    `step_ms` is min-over-reps per step; `collective_ms` is the per-step
+    collective share on the sharded path (None elsewhere); the flop/byte
+    columns are the steps the engine executed.  On the card: `launch_us`
+    is the host's time per launch, `event_ms` the stamped tile kernel's
+    event time, `stamped_ms` the sum of its steps' stamps, `clock_mhz` the
+    rate its cycles ran at (all None on the CPU).
     """
 
     engine: str
@@ -157,7 +167,8 @@ class ScheduleProfile:
 def merge_profiles(profiles) -> ScheduleProfile:
     """One profile whose steps are all of `profiles`' steps, in order, so
     that `calibrate` fits one set of constants to several schedules;
-    `launch_us` is the median of theirs (None when none has one)."""
+    `launch_us` is the median of theirs (None when none has one), and the
+    collective split is kept when every profile has one."""
     profiles = list(profiles)
     if not profiles:
         raise ValueError("no profile to merge")
@@ -171,7 +182,9 @@ def merge_profiles(profiles) -> ScheduleProfile:
         engine="+".join(sorted({p.engine for p in profiles})),
         num_steps=sum(p.num_steps for p in profiles),
         reps=min(p.reps for p in profiles), step_ms=cat("step_ms"),
-        collective_ms=None, step_padded_flops=cat("step_padded_flops"),
+        collective_ms=(cat("collective_ms") if all(
+            p.collective_ms is not None for p in profiles) else None),
+        step_padded_flops=cat("step_padded_flops"),
         step_real_flops=cat("step_real_flops"), step_bytes=cat("step_bytes"),
         width_buckets=[b for p in profiles for b in p.width_buckets],
         launch_us=float(np.median(launch)) if launch else None)
@@ -301,6 +314,61 @@ def _profile_stamped(ds, c: torch.Tensor, *, reps, warmup, engine, clock):
     return prof, x
 
 
+def _profile_sharded(host, c, mesh, axis: str, *, reps, warmup, clock):
+    """The sharded path, one step at a time, with and without its
+    collectives: (ScheduleProfile, x)."""
+    from ..solver import distributed as D
+    from ..solver.levelset import pad_rhs, torch_dtype
+    group, nshards, rank = D.axis_group(mesh, axis)
+    device = D.mesh_device(mesh)
+    padded = D._padded_schedule(host, nshards)
+    per_step = D._per_step(D._stage_block(padded, rank, nshards, device),
+                           padded.num_steps)
+    ct = torch.as_tensor(np.asarray(c) if not isinstance(c, torch.Tensor)
+                         else c, device=device).to(torch_dtype(host.dtype))
+    c_pad = pad_rhs(ct)
+    S, n, n_carry = padded.num_steps, padded.n, padded.n_carry
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def run(record, gather):
+        x, carry = D._init_state(n, n_carry, c_pad)
+        for s, sg in enumerate(per_step):
+            t0 = clock()
+            if record is not None:
+                _fire_step_fault(s)     # stall INSIDE the timed window
+            x, carry = D._step_update(x, carry, c_pad, sg, n_carry=n_carry,
+                                      group=group, gather=gather)
+            sync()
+            if record is not None:
+                record[s] = min(record[s], clock() - t0)
+        return x[:n]
+
+    # the identity-gather pass keeps each rank's updates local: the same
+    # per-step work, no collective, unusable numerics — timed, discarded
+    timings, x = {}, None
+    for kind, gather in (("full", D._gather),
+                         ("compute", lambda v, group: v)):
+        for _ in range(max(0, warmup)):
+            run(None, gather)
+        rec = np.full(S, np.inf)
+        for _ in range(max(1, reps)):
+            out = run(rec, gather)
+            if kind == "full":
+                x = out
+        timings[kind] = np.where(np.isfinite(rec), rec, 0.0) * 1e3
+    pf, rf, sb, buckets = _schedule_columns(padded)
+    prof = ScheduleProfile(
+        engine="sharded", num_steps=S, reps=max(1, reps),
+        step_ms=timings["full"],
+        collective_ms=np.maximum(timings["full"] - timings["compute"], 0.0),
+        step_padded_flops=pf, step_real_flops=rf, step_bytes=sb,
+        width_buckets=buckets)
+    return prof, x
+
+
 def _launch_us(fn, c: torch.Tensor, launches: int, calls: int = 20,
                clock=time.perf_counter) -> float:
     """Host time per launch of the served solve `fn(c)`: the host's time
@@ -319,23 +387,36 @@ def _launch_us(fn, c: torch.Tensor, launches: int, calls: int = 20,
 
 def profile_schedule(sched, c, *, reps: int = 2, warmup: int = 1,
                      clock=time.perf_counter, device=None,
-                     engine=None) -> ScheduleProfile:
+                     engine=None, mesh=None,
+                     axis: str = "model") -> ScheduleProfile:
     """Profile one schedule execution per step (module doc).
 
     sched: a LevelSchedule or DeviceSchedule; c: the preamble-applied
-    right-hand side (n,) (numpy or tensor; (n, k) on the CPU).  device:
-    where to run ("cuda" when None, as every entry point of the port;
-    a DeviceSchedule's own device wins); engine: "torch" profiles step by
-    step, "cuda" by K1's stamps (None: the device's default).
+    right-hand side (n,) (numpy or tensor; (n, k) on the CPU and under a
+    mesh).  device: where to run ("cuda" when None, as every entry point
+    of the port; a DeviceSchedule's own device wins); engine: "torch"
+    profiles step by step, "cuda" by K1's stamps (None: the device's
+    default).  `mesh` (a DeviceMesh and its `axis`), or a ShardedEngine as
+    `engine`, profiles the sharded path on the mesh's device and splits
+    each step into collective and compute time.
     """
     return _profile_and_solve(sched, c, reps=reps, warmup=warmup,
-                              clock=clock, device=device, engine=engine)[0]
+                              clock=clock, device=device, engine=engine,
+                              mesh=mesh, axis=axis)[0]
 
 
-def _profile_and_solve(sched, c, *, reps, warmup, clock, device, engine):
+def _profile_and_solve(sched, c, *, reps, warmup, clock, device, engine,
+                       mesh=None, axis="model"):
     from ..solver.engines import resolve_engine
     from ..solver.levelset import (DeviceSchedule, resolve_device,
                                    to_device, torch_dtype)
+    if engine is not None:
+        engine = resolve_engine(engine)
+        if mesh is None:
+            mesh, axis = engine.collective_mesh() or (None, axis)
+    if mesh is not None:
+        return _profile_sharded(getattr(sched, "host", sched), c, mesh, axis,
+                                reps=reps, warmup=warmup, clock=clock)
     if isinstance(sched, DeviceSchedule):
         ds = sched
     else:
@@ -359,12 +440,14 @@ def profile_operator(op, b=None, *, reps: int = 2, warmup: int = 1,
     """Profile a built TriangularOperator's main schedule on its device
     with its engine, the operator's own orientation + preamble applied to
     `b` (default: ones), so the profiled c is exactly what a served solve
-    would feed the schedule."""
+    would feed the schedule.  A sharded engine routes its mesh and axis
+    through (and stages nothing unpadded)."""
     v = np.ones(op.n, dtype=np.float64) if b is None else np.asarray(b)
     if op._reversed:
         v = v[::-1]
     c = op._ts.preamble(v)
-    return profile_schedule(op._staged(), c, reps=reps, warmup=warmup,
+    return profile_schedule(op._engine.operator_form(op), c, reps=reps,
+                            warmup=warmup,
                             clock=clock, engine=op._engine)
 
 
@@ -382,8 +465,10 @@ class ProfilingEngine(_EngineBase):
     the plain torch loop; `base` the "cuda" engine runs every solve it
     serves as K1's stamped form (`sptrsv_groups_stamped`), which takes one
     right-hand side: a batched one (n, R) is solved column by column and
-    `last_profile` is the last column's.  Availability, cache identity, the tuner's sweep shape and
-    the devices it runs on are the base's.
+    `last_profile` is the last column's; `base` a ShardedEngine profiles
+    the sharded path over its mesh and axis (the collective split).
+    Availability, cache identity, the tuner's sweep shape, the devices it
+    runs on and where it stages are the base's.
     """
 
     def __init__(self, base=None, *, reps: int = 1, warmup: int = 1,
@@ -398,6 +483,22 @@ class ProfilingEngine(_EngineBase):
             self.supports_batched_rhs = base.supports_batched_rhs
             self.dtypes = base.dtypes
             self.device_types = base.device_types
+
+    # where it stages, what it compiles and over which mesh: the base's
+    def placement(self, device=None):
+        return (self.base or super()).placement(device)
+
+    def operator_form(self, op, which: str = "main"):
+        return (self.base or super()).operator_form(op, which)
+
+    def pack_device(self, device):
+        return (self.base or super()).pack_device(device)
+
+    def collective_mesh(self):
+        return (self.base or super()).collective_mesh()
+
+    def _require_dtype(self, dsched) -> None:
+        (self.base or super())._require_dtype(dsched)
 
     def available(self) -> bool:
         return self.base.available() if self.base is not None else True
@@ -417,7 +518,9 @@ class ProfilingEngine(_EngineBase):
         engine = self.base if self.base is not None else "torch"
 
         def fn(cv):
-            if self.base is not None and cv.ndim == 2:
+            # K1's stamped form takes one column; the sharded path all
+            if self.base is not None and cv.ndim == 2 and \
+                    self.base.collective_mesh() is None:
                 return torch.stack([fn(cv[:, r]) for r in
                                     range(cv.shape[1])], 1)
             prof, x = _profile_and_solve(

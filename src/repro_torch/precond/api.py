@@ -27,8 +27,11 @@ both operators through `TriangularOperator.update_values` (on the card,
 a device refresh of the SpTRSV kernel's packed tiles); the pair decision
 and everything structural are kept.
 
-Not ported yet (ROADMAP.md, queue 1: sharded solves): `mesh=` raises
-NotImplementedError.
+`mesh=` (a torch.distributed DeviceMesh, with `mesh_axis=`) serves BOTH
+sweeps through the sharded engine over that axis, so M^-1 (host `apply`
+or `device_apply`) runs under one mesh with no host round trip between
+the sweeps; pair decisions then use the sharded cost model, and the
+measured pair mode's timings are the axis' first rank's on every rank.
 """
 from __future__ import annotations
 
@@ -110,6 +113,7 @@ class Preconditioner:
     def from_factors(cls, fac: FactorResult, tune="auto", *, system=None,
                      chunk: int = 256, max_deps: int = 16, dtype=np.float32,
                      engine=None, device=None, mesh=None,
+                     mesh_axis: str = "model",
                      cache: bool = True, cache_dir=None, cost_model=None,
                      measure_top_k: int = 0) -> "Preconditioner":
         """Build the operator pair for an existing FactorResult.
@@ -125,13 +129,14 @@ class Preconditioner:
         cost_model/measure_top_k: as for `TriangularOperator.from_csr`;
                 the measured pair mode times the composed M^-1 (module
                 doc).
-        mesh:   raises NotImplementedError (module doc).
+        mesh/mesh_axis: a DeviceMesh serves both sweeps through the
+                sharded engine over `mesh_axis` (module doc), on the mesh's
+                device.  Mutually exclusive with engine=.
         Remaining arguments match TriangularOperator.from_csr.
         """
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= needs the port's sharded solves (ROADMAP.md, queue "
-                "1: sharded solves)")
+            from ..solver.engines import resolve_engine
+            engine = resolve_engine(engine, mesh=mesh, mesh_axis=mesh_axis)
         report = None
         if isinstance(tune, str) and tune == "auto":
             tune, report = cls._pair_decision(
@@ -165,10 +170,8 @@ class Preconditioner:
         """
         from ..core.portfolio import (StrategyPortfolio,
                                       default_cost_model_for)
-        from ..solver.engines import resolve_engine
-        from ..solver.levelset import resolve_device
-        dev = resolve_device(device)
-        eng = resolve_engine(engine, device=dev)
+        from ..solver.engines import resolve_placement
+        eng, dev = resolve_placement(engine, device)
         if cost_model is None:
             cost_model = default_cost_model_for(eng)
         key = None
@@ -248,6 +251,9 @@ class Preconditioner:
                 sync()
                 best = min(best, time.perf_counter() - t0)
             measured[label] = best * 1e6
+        # every rank of a mesh takes its first rank's timings, so that all
+        # of them build the same pair
+        measured = engine.agree(measured)
         for c in pair.combined:
             if c["label"] in measured:
                 # total_us becomes the measured composed-apply time;

@@ -175,7 +175,9 @@ class OperatorRegistry:
     clock:     injected time source for `admitted_at` stamps (defaults to
                `time.perf_counter`; tests pass a synthetic clock).
     from_csr_kwargs: forwarded to every `TriangularOperator.from_csr`
-               (device=, cache=, cache_dir=, chunk=, engine=, ...).
+               (device=, cache=, cache_dir=, chunk=, engine=, ...);
+               sharded operators (`mesh=`, engine="sharded") are refused
+               with ValueError.
     """
 
     def __init__(self, *, tune="auto", untuned="no_rewriting",
@@ -184,6 +186,15 @@ class OperatorRegistry:
         if tune_mode not in ("background", "sync", "off"):
             raise ValueError(
                 f"tune_mode must be background|sync|off, got {tune_mode!r}")
+        from ..solver.engines import ShardedEngine
+        eng = from_csr_kwargs.get("engine")
+        if "mesh" in from_csr_kwargs or "mesh_axis" in from_csr_kwargs or \
+                eng == "sharded" or isinstance(eng, ShardedEngine):
+            # every rank of a mesh must take the same decisions in the same
+            # order; a background tuner and a worker pool per rank do not
+            raise ValueError("the solve service does not serve sharded "
+                             "operators (mesh=, engine='sharded'); build "
+                             "them with TriangularOperator.from_csr")
         self._clock = clock
         self._tune = tune
         self._untuned = untuned

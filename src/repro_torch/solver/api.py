@@ -23,8 +23,10 @@ differentiable.  The result has `b`'s dtype and lies on `b`'s device,
 whichever device the operator serves from; a numpy `b` returns float64
 numpy.
 
-Not ported yet (ROADMAP.md, queue 1: sharded solves): `mesh=` raises
-NotImplementedError.
+`mesh=` (a torch.distributed DeviceMesh, with `mesh_axis=`) builds the
+operator under the sharded engine (one all_gather family per schedule
+step); the backward pass solves the flipped system under the same mesh.
+Every rank calls `sptrsv` with the same b and gets the same x.
 """
 from __future__ import annotations
 
@@ -117,7 +119,8 @@ class _Solve(torch.autograd.Function):
 
 def sptrsv(A: CSR, b, *, lower: bool = True, transpose: bool = False,
            unit_diagonal: bool = False, engine=None, device=None, mesh=None,
-           tune="no_rewriting", chunk: int = 256, max_deps: int = 16,
+           mesh_axis: str = "model", tune="no_rewriting", chunk: int = 256,
+           max_deps: int = 16,
            dtype=np.float32, cache: bool = True, cache_dir=None,
            refine_tol: float = 1e-10, max_refine: int = 6, health=None):
     """Solve the triangular system `op(A) x = b` (module doc for the map
@@ -136,7 +139,9 @@ def sptrsv(A: CSR, b, *, lower: bool = True, transpose: bool = False,
     device: where the operator lives: "cuda" (the default when None) or
             "cpu"; b is copied there and the result comes back to b's
             device.
-    mesh:   raises NotImplementedError (module doc).
+    mesh/mesh_axis: a DeviceMesh routes the solve (and its backward)
+            through the sharded engine over `mesh_axis`, on the mesh's
+            device (module doc).  Mutually exclusive with engine=.
     tune:   transform selection forwarded to TriangularOperator.from_csr —
             "no_rewriting" (default: plain level scheduling), any stable
             strategy name, a Strategy instance, or "auto" for the
@@ -149,17 +154,13 @@ def sptrsv(A: CSR, b, *, lower: bool = True, transpose: bool = False,
             (TriangularOperator.solve).  Applies to every solve this call
             performs, backward (adjoint) passes included.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs the port's sharded solves (ROADMAP.md, queue 1: "
-            "sharded solves)")
     if unit_diagonal:
         A = with_unit_diagonal(A)
     op = TriangularOperator.from_csr(
         A, tune, side="lower" if lower else "upper",
         transpose=bool(transpose), chunk=chunk, max_deps=max_deps,
-        dtype=dtype, engine=engine, device=device, cache=cache,
-        cache_dir=cache_dir)
+        dtype=dtype, engine=engine, device=device, mesh=mesh,
+        mesh_axis=mesh_axis, cache=cache, cache_dir=cache_dir)
     bound = _BoundSolve(op, refine_tol=refine_tol, max_refine=max_refine,
                         health=health)
     if isinstance(b, torch.Tensor):

@@ -87,7 +87,16 @@ reference's spans (`operator.tune`, `operator.update_values`,
 and events (`operator.cache`, `engine.fallback`, `health.violation`)
 when tracing is on.
 
-Not ported yet (ROADMAP.md, queue 1): `mesh=`.
+Sharded sweeps (`mesh=`, a torch.distributed DeviceMesh with the axis
+`mesh_axis`): every solve goes through the `ShardedEngine` over that axis,
+one all_gather family per schedule step (`solver/distributed.py`), on the
+mesh's device.  Every rank builds the same operator and solves the same
+right-hand side, and gets the same x.  The engine lowers from the host
+schedule: a sharded operator never stages the unpadded schedule and never
+packs the SpTRSV kernel's tiles; its chain falls back to K1 on a card
+(which packs them at that first use) and to the plain body on the CPU.
+Under a mesh of more than one rank only the axis' first rank writes the
+disk tier.
 """
 from __future__ import annotations
 
@@ -427,6 +436,28 @@ def _certify(payload: dict, device, where: str, *, base=None,
     payload["packed_certificate"] = certs
 
 
+def _schedule_digest(payload: dict) -> tuple:
+    """What every rank of a sharded solve must share: the strategy and the
+    schedule's structure (each group's lane shape and carries), which fix
+    every step's collectives."""
+    sched = payload["sched"]
+    return (payload["strategy"], sched.n_carry,
+            tuple((g.row_ids.shape, g.dep_idx.shape[2],
+                   g.carry_in is not None) for g in sched.groups))
+
+
+def _agreed_hit(engine, payload):
+    """`payload` when every rank of `engine`'s mesh holds a cache hit of
+    the same schedule, else None, so that the ranks serve one hit together
+    or all build (or derive) together, never one of each: a rank building
+    alone would tune, and its measured mode's broadcast would wait for
+    ranks that never join it.  On one device, `payload` itself."""
+    mine = None if payload is None else _schedule_digest(payload)
+    hits = engine.all_ranks(mine)
+    return payload if mine is not None and all(h == mine for h in hits) \
+        else None
+
+
 class TriangularOperator:
     """Compiled triangular-solve operator for one matrix (see module doc)."""
 
@@ -507,7 +538,8 @@ class TriangularOperator:
     def from_csr(cls, L: CSR, tune="auto", *, side: str = "lower",
                  transpose: bool = False, chunk: int = 256,
                  max_deps: int = 16, dtype=np.float32, engine=None,
-                 device=None, cache: bool = True, cache_dir=None,
+                 device=None, mesh=None, mesh_axis: str = "model",
+                 cache: bool = True, cache_dir=None,
                  portfolio=None, cost_model=None,
                  measure_top_k: int = 0,
                  health=None) -> "TriangularOperator":
@@ -523,6 +555,14 @@ class TriangularOperator:
         device: "cuda" (the default when None) or "cpu"; None without CUDA
                 raises RuntimeError.  On a card the build also packs and
                 stages the sweep's schedules (main and preamble).
+        mesh/mesh_axis: serve sharded sweeps — a DeviceMesh routes every
+                solve through the ShardedEngine over `mesh_axis` (one
+                all_gather family per step; module doc), staged on the
+                mesh's device (a `device=` that disagrees raises).
+                Mutually exclusive with `engine=`.  With tune="auto" and
+                no explicit cost_model, tuning defaults to
+                `CostModel.sharded()`, which charges the per-step
+                collective.
         cache:  look up / keep the compiled artifact in memory and on disk
                 (memory, then disk, then an equal-pattern artifact of
                 either re-bound to L's values: module doc), keyed by the
@@ -557,14 +597,13 @@ class TriangularOperator:
         from ..core.resilience import resolve_health_policy
         from ..core.strategies import strategy_label
         from ..core.transform import transform
-        from .engines import resolve_engine
-        from .levelset import resolve_device
+        from .engines import resolve_placement
         from .schedule import schedule_for_transformed
 
         if side not in ("lower", "upper"):
             raise ValueError(f"side must be 'lower' or 'upper', got {side!r}")
-        dev = resolve_device(device)
-        eng = resolve_engine(engine, device=dev)
+        eng, dev = resolve_placement(engine, device, mesh=mesh,
+                                     mesh_axis=mesh_axis)
         if dev.type not in getattr(eng, "device_types", (dev.type,)):
             raise ValueError(f"engine {eng.name!r} does not run on {dev}; "
                              f"it runs on {tuple(eng.device_types)}")
@@ -590,24 +629,29 @@ class TriangularOperator:
         key = f"{pattern_key}-{value_fingerprint(L)}"
         strict = resolve_health_policy(health).verify_schedule
         where = f"TriangularOperator.from_csr(n={L.n_rows})"
+        # where K1's tiles are packed and certified: nowhere for an engine
+        # that reads none (the sharded one)
+        pack_dev = eng.pack_device(dev)
 
         def _finish(payload, source):
             if strict:
                 # a hit without its certificates (built without strict
                 # health, or an older disk entry) is certified now, before
                 # the card packs or launches anything from it
-                _certify(payload, dev, where)
+                _certify(payload, pack_dev, where)
             op = cls(L, payload, cache_source=source, device=dev, engine=eng)
             op._build_kwargs = dict(build_kwargs, tune=tune)
-            if dev.type == "cuda":
-                # pack and stage the sweep's schedules now, so the build
-                # and not the first solve pays the host packing; what
-                # packing and staging raise fails the build.  What the
-                # engine's compile raises (a capability check, a failed
-                # build of the kernels) is memoized as a compile failure:
+            if dev.type == "cuda" or eng.collective_mesh() is not None:
+                # stage (on a card, pack) the forms of the sweep's
+                # schedules the engine reads now, so the build and not the
+                # first solve pays the host packing; what packing and
+                # staging raise fails the build.  A sharded engine lowers
+                # here, every rank together.  What the engine's compile
+                # raises (a capability check, a failed build of the
+                # kernels, a lost mesh) is memoized as a compile failure:
                 # the solves walk the engine's chain and name it
-                op._staged()
-                op._preamble_staged()
+                eng.operator_form(op)
+                eng.operator_form(op, "preamble")
                 try:
                     op.device_solve_fn()
                 except Exception as e:  # noqa: BLE001 - named at solve
@@ -616,30 +660,31 @@ class TriangularOperator:
                        strategy=payload["strategy"])
             return op
 
+        payload, source = None, None
         if cache:
-            payload = cls._memory_get(key)
-            if payload is not None:
-                return _finish(payload, "memory")
-            payload = cls._disk_load(key, cache_dir)
-            if payload is not None:
+            payload, source = cls._memory_get(key), "memory"
+            if payload is None:
+                payload, source = cls._disk_load(key, cache_dir), "disk"
+            if payload is None:
+                # no exact hit: an equal-pattern artifact (any values) can
+                # be numerically re-bound without re-tuning or re-compiling
+                base = cls._memory_get_pattern(pattern_key)
+                if base is None:
+                    base = cls._disk_load_pattern(pattern_key, cache_dir)
+                if base is not None:
+                    # under strict health the re-bound schedule is
+                    # certified before its packed forms are refreshed
+                    payload, source = cls._try_derive_payload(
+                        base, L, certify=strict, where=where), "pattern"
+        payload = _agreed_hit(eng, payload)
+        if payload is not None:
+            if source == "pattern" and strict:
+                _certify(payload, pack_dev, where)     # the packed forms
+            if source != "memory":
                 cls._memory_put(key, payload)
-                return _finish(payload, "disk")
-            # no exact hit: an equal-pattern artifact (any values) can be
-            # numerically re-bound without re-tuning or re-compiling
-            base = cls._memory_get_pattern(pattern_key)
-            if base is None:
-                base = cls._disk_load_pattern(pattern_key, cache_dir)
-            if base is not None:
-                # under strict health the re-bound schedule is certified
-                # before its packed forms are refreshed, and they after
-                payload = cls._try_derive_payload(base, L, certify=strict,
-                                                  where=where)
-                if payload is not None:
-                    if strict:
-                        _certify(payload, dev, where)
-                    cls._memory_put(key, payload)
-                    cls._disk_store(key, payload, cache_dir)
-                    return _finish(payload, "pattern")
+            if source == "pattern" and eng.writes_disk():
+                cls._disk_store(key, payload, cache_dir)
+            return _finish(payload, source)
         L_eff, reversed_ = orient_lower(L, side, bool(transpose))
         t0 = time.perf_counter()
         report = None
@@ -670,15 +715,16 @@ class TriangularOperator:
             # schedule raises a typed error with no pack and no launch, and
             # the certificates ride the disk entry, so _finish has nothing
             # to do; on a card this packs and certifies the packed forms
-            _certify(payload, dev, where)
-        elif dev.type == "cuda":
+            _certify(payload, pack_dev, where)
+        elif pack_dev is not None and pack_dev.type == "cuda":
             # packed before the disk store, so that the entry carries the
             # packed forms and a later hit on a card packs nothing
             for which in ("packed", "preamble_packed"):
                 _payload_packed(payload, which)
         if cache:
             cls._memory_put(key, payload)
-            cls._disk_store(key, payload, cache_dir)
+            if eng.writes_disk():
+                cls._disk_store(key, payload, cache_dir)
         return _finish(payload, "built")
 
     def transposed(self) -> "TriangularOperator":
@@ -827,25 +873,27 @@ class TriangularOperator:
                    f"{value_fingerprint(new_L)}")
             payload, source, repacked = None, "pattern", {}
             if cache:
-                payload = self._memory_get(key)
-                if payload is not None:
-                    source = "memory"
-                else:
-                    payload = self._disk_load(key, cache_dir)
-                    if payload is not None:
-                        source = "disk"
-                        self._memory_put(key, payload)
+                payload, source = self._memory_get(key), "memory"
+                if payload is None:
+                    payload, source = self._disk_load(key, cache_dir), "disk"
+                payload = _agreed_hit(self._engine, payload)
+                if payload is None:
+                    source = "pattern"
+                elif source == "disk":
+                    self._memory_put(key, payload)
             derived = payload is None
             if derived:
                 payload, repacked = self._derive_payload(
                     self._payload, new_L, certify=policy.verify_schedule,
                     where=where)
             if policy.verify_schedule:
-                _certify(payload, self.device, where, base=self._payload,
+                _certify(payload, self._pack_device(), where,
+                         base=self._payload,
                          refreshed=repacked if derived else None)
             if derived and cache:
                 self._memory_put(key, payload)
-                self._disk_store(key, payload, cache_dir)
+                if self._engine.writes_disk():
+                    self._disk_store(key, payload, cache_dir)
             repacks = sum(repacked.values())
             usp.set(source=source, repacks=repacks)
         self._L = new_L
@@ -876,17 +924,23 @@ class TriangularOperator:
         kernel reads; returns the `ScheduleCertificate` and keeps the
         certificates on the payload (so a later strict-mode cache hit
         skips re-verification).  Raises `ScheduleInvariantError` /
-        `TransformInvariantError` on violation; `collectives=True` raises
-        NotImplementedError until the sharded lowering is ported.
+        `TransformInvariantError` on violation.  `collectives=True` also
+        certifies one all_gather family per step of the sharded lowering
+        (`verify_collectives`), over the operator's mesh when its engine
+        is sharded, else over a mesh of one rank.
         """
         from ..analysis.verify import verify_operator_payload
         where = f"TriangularOperator.verify(n={self.n})"
+        mesh, axis = None, "model"
+        if collectives:
+            mesh, axis = self._engine.collective_mesh() or (mesh, axis)
         cert = verify_operator_payload(
             self._payload, devices=devices, collectives=collectives,
-            where=where)
-        if self.device.type == "cuda":
+            mesh=mesh, mesh_axis=axis, where=where)
+        pack_dev = self._pack_device()
+        if pack_dev is not None and pack_dev.type == "cuda":
             self._payload.pop("packed_certificate", None)
-            _certify(self._payload, self.device, where)
+            _certify(self._payload, pack_dev, where)
         return cert
 
     # -- cache plumbing -------------------------------------------------------
@@ -995,6 +1049,11 @@ class TriangularOperator:
     def transformed(self):
         return self._ts
 
+    def _pack_device(self):
+        """Where the SpTRSV kernel's packed forms are certified for this
+        operator (`Engine.pack_device`)."""
+        return self._engine.pack_device(self.device)
+
     def _packed(self, which: str):
         """The payload's packed form of the main schedule ("packed") or of
         the preamble's ("preamble_packed") on this operator's device:
@@ -1016,13 +1075,16 @@ class TriangularOperator:
         return ds
 
     def _compiled_fn(self, engine):
-        """engine -> compiled schedule fn, cached on the shared payload."""
+        """engine -> compiled schedule fn, cached on the shared payload;
+        the engine compiles the form of the schedule it reads
+        (`Engine.operator_form`: the sharded one the host schedule, so
+        nothing unpadded is staged and no K1 tile is packed for it)."""
         cached = self._runtime["compiled"].get(engine.name)
         if cached is not None and cached[0] is engine:
             return cached[1]
         with _obs.span("engine.compile", engine=engine.name, n=self.n,
                        steps=self._sched.num_steps):
-            fn = engine.compile(self._staged())
+            fn = engine.compile(engine.operator_form(self))
         self._runtime["compiled"][engine.name] = (engine, fn)
         return fn
 
@@ -1042,21 +1104,27 @@ class TriangularOperator:
         return _payload_preamble(self._payload)
 
     def _preamble_staged(self):
-        """_preamble_host staged on this operator's device, once: (staged
-        schedule|None, src tensor|None, row_pos tensor|None)."""
-        entry = self._runtime.get("preamble")
-        if entry is None:
+        """_preamble_host's schedule staged on this operator's device
+        (None for an identity preamble), once."""
+        if "preamble" not in self._runtime:
             from .levelset import to_device
-            psched, src, row_pos = self._preamble_host()
-            if psched is None:
-                entry = (None, None, None)
-            else:
-                packed = self._packed("preamble_packed") \
-                    if self.device.type == "cuda" else None
-                entry = (to_device(psched, self.device, packed),
-                         torch.as_tensor(src, device=self.device),
-                         torch.as_tensor(row_pos, device=self.device))
-            self._runtime["preamble"] = entry
+            psched = self._preamble_host()[0]
+            self._runtime["preamble"] = None if psched is None else \
+                to_device(psched, self.device, self._packed(
+                    "preamble_packed") if self.device.type == "cuda"
+                    else None)
+        return self._runtime["preamble"]
+
+    def _preamble_maps(self):
+        """The preamble's (src, row_pos) index maps on this operator's
+        device, once ((None, None) for an identity preamble)."""
+        entry = self._runtime.get("preamble_maps")
+        if entry is None:
+            _, src, row_pos = self._preamble_host()
+            entry = self._runtime["preamble_maps"] = (None, None) \
+                if src is None else (torch.as_tensor(src, device=self.device),
+                                     torch.as_tensor(row_pos,
+                                                     device=self.device))
         return entry
 
     def device_solve_fn(self, engine=None):
@@ -1074,14 +1142,14 @@ class TriangularOperator:
         eng = self._engine if engine is None else \
             resolve_engine(engine, device=self.device)
         main_fn = self._compiled_fn(eng)
-        pdsched, src, row_pos = self._preamble_staged()
+        src, row_pos = self._preamble_maps()
         pre_fn = None
-        if pdsched is not None:
+        if src is not None:
             cached = self._runtime["pre_compiled"].get(eng.name)
             if cached is not None and cached[0] is eng:
                 pre_fn = cached[1]
             else:
-                pre_fn = eng.compile(pdsched)
+                pre_fn = eng.compile(eng.operator_form(self, "preamble"))
                 self._runtime["pre_compiled"][eng.name] = (eng, pre_fn)
         return compose_sweep_fn(main_fn, self._schedule_dtype(), pre_fn,
                                 src, row_pos, self._reversed)

@@ -227,9 +227,16 @@ def test_corrupt_plans_are_refused_like_the_reference(mode):
 
 
 def test_collectives_wait_for_the_sharded_lowering():
+    """The sharded lowering is ported: collectives=True certifies one
+    all_gather family per step, as the reference's certificate does."""
+    from repro.analysis.verify import verify_level_schedule as ref_verify
     _, ts, sched = _build("banded(200,5)", "no_rewriting")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        verify_level_schedule(sched, ts.A, ts.diag, collectives=True)
+    ts_ref, sched_ref = _ref_build("banded(200,5)", "no_rewriting")
+    cert = verify_level_schedule(sched, ts.A, ts.diag, collectives=True)
+    want = ref_verify(sched_ref, ts_ref.A, ts_ref.diag, collectives=True)
+    assert cert.collective_families == sched.num_steps == \
+        want.collective_families
+    assert cert.checks[-1] == "collectives" == want.checks[-1]
 
 
 # -- the injectors through a strict build -------------------------------------
@@ -330,8 +337,9 @@ def test_default_build_skips_verification_and_verify_certifies(tmp_path):
     assert op._payload.get("packed_certificate") is None
     cert = op.verify(devices=2)
     assert op.certificate is cert and cert.devices == 2
-    with pytest.raises(NotImplementedError):
-        op.verify(collectives=True)
+    assert cert.collective_families is None
+    cert = op.verify(collectives=True)      # a mesh of one rank
+    assert cert.collective_families == op.schedule.num_steps
 
 
 def test_update_values_strict_rejects_a_poisoned_rebind(tmp_path):

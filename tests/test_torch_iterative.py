@@ -113,7 +113,9 @@ def test_device_matvec_serves_both_dtypes_and_rejects_mesh():
     np.testing.assert_allclose(y64.numpy(), A.matvec(x), rtol=1e-12)
     np.testing.assert_allclose(y32.numpy(), A.matvec(x), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # mesh= is ported (tests/test_torch_distributed.py); what is no
+    # DeviceMesh is refused before anything is staged
+    with pytest.raises(TypeError, match="DeviceMesh"):
         device_matvec(A, mesh=object())
     with pytest.raises(TypeError, match="CSR matrix or a callable"):
         as_matvec(np.eye(3))

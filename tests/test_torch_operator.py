@@ -202,7 +202,7 @@ def test_stats_fields_match_reference():
 
 
 def test_engine_registry_and_capabilities():
-    assert set(engines.registered_engines()) == {"cuda", "torch"}
+    assert set(engines.registered_engines()) == {"cuda", "sharded", "torch"}
     cuda, plain = engines.get_engine("cuda"), engines.get_engine("torch")
     assert cuda.capabilities()["dtypes"] == list(PallasEngine.dtypes)
     assert cuda.capabilities()["available"] == torch.cuda.is_available()

@@ -263,7 +263,9 @@ def test_not_ported_options_raise():
     # tune="auto", the default, is ported: the pair tuner decides
     assert Preconditioner.ic0(A, device="cpu").report is not None
     assert Preconditioner.from_factors(fac, device="cpu").report is not None
-    with pytest.raises(NotImplementedError, match="sharded solves"):
+    # mesh= is ported (tests/test_torch_distributed.py); what is no
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Preconditioner.from_factors(fac, tune="no_rewriting", mesh=object(),
                                     device="cpu")
     # refactor is ported (tests/test_torch_refactor.py holds it against

@@ -722,7 +722,8 @@ def test_compile_and_availability_failures_are_memoized(fault):
 def test_card_chain_never_holds_the_plain_engine():
     """Pure resolution: a chain naming a plain engine resolves to nothing
     for a schedule on a card, and to that engine on the CPU."""
-    assert fallback_chains() == {"cuda": (), "torch": ()}
+    assert fallback_chains() == {"cuda": (), "torch": (),
+                                 "sharded": ("cuda", "torch")}
     cuda, plain = get_engine("cuda"), get_engine("torch")
     assert plain.plain and not cuda.plain
     alt = _alt_engine()
@@ -736,6 +737,49 @@ def test_card_chain_never_holds_the_plain_engine():
     assert engine_fallbacks(cuda, device="cpu") == (plain,)
     set_fallback_chain("cuda", ())
     assert engine_fallbacks(cuda, device="cuda") == ()
+
+
+def _world_of_one(backend="gloo"):
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def test_mesh_loss_downgrades_sharded_to_torch():
+    """The reference's test_mesh_loss_downgrades_sharded_to_scan: a lost
+    mesh fails the sharded lowering, and the sharded chain serves the
+    solve; for a CPU-staged operator that is the plain body
+    ("sharded->torch", the reference's "sharded->scan")."""
+    import torch.distributed as dist
+
+    def case(side, box):
+        with side.faults.lose_mesh():
+            op = box["op"] = side.Op.from_csr(_L(side), cache=False,
+                                              engine="sharded", **side.kw)
+            return op.solve(_b())
+
+    _world_of_one()
+    try:
+        port, _ = _parity(case)
+    finally:
+        dist.destroy_process_group()
+    assert port.warnings == {"EngineFallbackWarning": 1}
+    assert port.stats["last_fallback"] == "sharded->torch"
+
+
+def test_sharded_chain_resolves_by_the_staged_device():
+    """("cuda", "torch"): K1 for a schedule on a card, the plain body on
+    the CPU — never the plain engine on a card, never K1 on the CPU."""
+    sharded = get_engine("sharded")
+    cuda, plain = get_engine("cuda"), get_engine("torch")
+    assert not sharded.plain
+    assert engine_fallbacks(sharded, device="cuda") == (cuda,)
+    assert engine_fallbacks(sharded, device="cuda:0") == (cuda,)
+    assert engine_fallbacks(sharded, device="cpu") == (plain,)
+    assert all(sharded not in engine_fallbacks(get_engine(n), device=d)
+               for n in ("cuda", "torch") for d in ("cpu", "cuda"))
 
 
 def test_explicit_plain_engine_is_the_callers_choice():
@@ -871,3 +915,29 @@ def test_cuda_transient_launch_failure_is_not_memoized(cuda_device,
     before = K.LAUNCHES["sptrsv_groups"]
     op.solve(b, max_refine=0)
     assert K.LAUNCHES["sptrsv_groups"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_loss_is_served_by_k1(cuda_device):
+    """A lost mesh on a card: the sharded chain serves the solve through
+    K1 (which packs its tiles at that first use), with the warning and
+    "sharded->cuda"; the plain body never runs."""
+    import torch.distributed as dist
+    L, b = _L(_port()), _b()
+    torch.cuda.set_device(0)
+    _world_of_one("nccl")
+    try:
+        with faults.lose_mesh():
+            op = TriangularOperator.from_csr(L, tune="no_rewriting",
+                                             cache=False, engine="sharded")
+            assert "packed" not in op._payload
+            before = dict(K.LAUNCHES)
+            with pytest.warns(Warning, match="mesh"):
+                x = op.solve(b)
+    finally:
+        dist.destroy_process_group()
+    assert op.device.type == "cuda"
+    assert op.stats.last_fallback == "sharded->cuda"
+    assert K.LAUNCHES["sptrsv_groups"] > before["sptrsv_groups"]
+    assert K.LAUNCHES["plain"] == before["plain"]
+    np.testing.assert_allclose(x, _oracle(L, b), rtol=1e-8, atol=1e-10)

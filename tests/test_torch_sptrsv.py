@@ -147,7 +147,7 @@ def test_dtypes_devices_and_options():
     assert x0.dtype == np.float64 and _rel(x0, x64) < 5e-4
     U = with_unit_diagonal(A)
     assert np.all(U.diagonal() == 1.0) and U.nnz == A.nnz
-    with pytest.raises(NotImplementedError, match="sharded solves"):
+    with pytest.raises(TypeError, match="DeviceMesh"):    # mesh= is ported
         sptrsv(A, b, device="cpu", mesh=object())
     before = dict(K.LAUNCHES)
     sptrsv(A, b, device="cpu")
