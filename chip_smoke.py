@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--sweep] [--ab DIR ...] [--only sptrsv|spmv]
-    python3 chip_smoke.py --sharded-rank RANK STORE OUT   (phase 11's own)
+    python3 chip_smoke.py --sharded-rank RANK STORE OUT     (phase 11's own)
+    python3 chip_smoke.py --mesh-serve-rank RANK STORE OUT  (phase 12's own)
 
 Run from the repository root on a machine with a CUDA card (it puts
 `src/` on `sys.path` itself).  Phases, in order; any failure exits
@@ -38,7 +39,11 @@ non-zero:
    must equal the DAG's level count), the widest step, the long lanes,
    µs per step and the packing's host seconds, and for K4 its device
    time with the L2 warm and flushed, the sliced form's slots, fill and
-   long rows, the pack's ms, the first call's and a cache hit's.
+   long rows, the pack's ms, the first call's and a cache hit's.  Then
+   Table I's code size: `transform(...).metrics` (codegen=True, the
+   default) of lung2_like(1.0) and torso2_like(1.0) under no_rewriting,
+   avgLevelCost and manual_every_k, in MB, beside
+   experiments/table1.csv's.
 4. Main path: `TriangularOperator.from_csr(L, tune=s)` on the card for
    both matrices and both strategies, then `solve(b)` (refined),
    `solve(b, max_refine=0)`, `solve(B)` for B (n, 8),
@@ -67,18 +72,23 @@ non-zero:
    profiles.  Then, on both matrices, a portfolio that measures every
    candidate, and `TriangularOperator.from_csr(L)` at tune="auto" in
    model mode and with measure_top_k=3 through a portfolio that takes
-   the candidates' transforms from the one before (`ReusedCandidates`:
-   the host transforms of lung2's ten candidates take two minutes); each
+   the candidates' transforms from the one before (`ReusedCandidates`);
+   on lung2 the candidates are `served_candidates()` (the default ones
+   less critical_path's two, whose host transforms take most of a
+   minute); each
    candidate prints its predicted us (the committed constants and the
    fresh fit), its measured us, its packed steps, its preamble's steps
    and its launches.  `from_csr(L)` as a user calls it, on torso2, must
    pick as the model mode did.  Last `Preconditioner.ic0(A)` at its
-   default tune="auto" on both SPD systems, IC(0)-PCG with its pick (the
-   gates of phase 5, and no_rewriting's iteration count) and the staged
+   default tune="auto" on torso2's SPD system, IC(0)-PCG with its pick
+   (the gates of phase 5, and no_rewriting's iteration count) and the
+   staged
    solve's ms beside no_rewriting's and avgLevelCost's on the same
    factors, timed in turns.  K1 and its stamped form must be launched,
    the plain version never.  `from_csr(L)` on torso2 keeps its operator
-   in a cache directory of its own for phase 7.
+   in a cache directory of its own for phase 7.  The phase prints the
+   seconds of its three sections (the profile and the fit; the
+   candidates; the IC(0) pair and its PCG) per matrix.
 7. The operator's life cycle at full size.  `update_values`: ten steps
    scaling the off-diagonal values by 1 + 0.01 k on lung2's L under
    no_rewriting and avgLevelCost (a preamble) and torso2's under
@@ -174,9 +184,10 @@ non-zero:
    engine, the plain version never runs, and the host reference serves
    no solve in phases 4-10.  The phase prints its reference-served and
    repaired solves, its K1, K2 and plain launches and its seconds.
-11. Sharded solves (`solver/distributed.py`), last, since it holds a
-   process group.  First a probe: does gloo take CUDA tensors (a gloo
-   world of one doing the sharded solve's collectives on cuda:0)?  It
+11. Sharded solves (`solver/distributed.py`), after the single-device
+   phases, in process groups it makes and destroys.  First a probe: does
+   gloo take CUDA tensors (a gloo world of one doing the sharded solve's
+   collectives on cuda:0)?  It
    prints its answer; if yes, two gloo ranks on cuda:0, each a process of
    its own (`--sharded-rank`), solve lung2_like(1.0) no_rewriting under a
    two-rank mesh, the default one (CUDA on a card, whatever the backend):
@@ -202,11 +213,39 @@ non-zero:
    operator, which K1 must serve with one `EngineFallbackWarning` and
    "sharded->cuda".  The plain version never runs, the host reference
    serves no solve; the phase prints its seconds.
-12. The kernels line and the contract line.
+12. The solve service under a mesh.  An NCCL world of one:
+   `SolveService(registry=OperatorRegistry(mesh=mesh,
+   tune_mode="background"))` over lung2_like(1.0) and torso2_like(1.0)
+   (float32, chunk 256, max_deps 16), its background tune in model mode
+   over phase 8's candidates on the sharded engine, run by the service's
+   one mesh thread between batches.  A wave of 8 requests (pattern i %
+   2) while the entries warm, every tune done (a hot swap each), a wave
+   at new values (re-binds), a batch of 3 whose sharded call fails at a
+   step once (`core.faults.fail_sharded_step`: every future carries the
+   `ShardedCallError`, and the next batch is served), a hot wave; every
+   answer within 5e-4 of the float64 oracle, zero drops, every served
+   operator sharded with all_gather families equal to its steps.  Then
+   two gloo ranks on cuda:0 (processes of their own, `--mesh-serve-rank`):
+   rank 0 serves 8 requests on lung2_like(1.0) no_rewriting in pump mode
+   and rank 1 follows; rank 0's answers within the oracle's gate and
+   bitwise equal to rank 1's batch columns, one command order on both.
+   Then the pair in auto mode: rank 0 submits 10 requests from 3 threads
+   (torso2_like(1.0) arriving after lung2's traffic started), each
+   pattern's background tune (no_rewriting and avgLevelCost, model mode)
+   runs between batches, and close() comes while 2 requests linger; the
+   same checks, and both hot swaps on both ranks.
+   Requests/s, mean width, queue and solve ms p50/p99, the hot swap's
+   and the phase's seconds.  The plain version never runs, the host
+   reference serves no solve.
+13. The examples: `examples/torch_{quickstart,pcg_ic0,timestepping,
+   transform_study}.py`'s `main` on the card (transform_study at scale
+   0.25), each timed, with its launches; K1 and K2 must be launched, the
+   plain version never.
+14. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
-With `--sweep` or `--ab`, phases 3-11 give way to studies of the SpTRSV
+With `--sweep` or `--ab`, phases 3-13 give way to studies of the SpTRSV
 kernel on lung2's and torso2's L and IC(0) L^T (R = 1, 8) and of K4 on
 phase 3's systems, written to chiprun_out/chip_smoke_study.json
 (`--only sptrsv` or `--only spmv` keeps one of the two): `--sweep` times
@@ -443,7 +482,8 @@ def build_cases():
             ts = transform(L, make_strategy(strat), validate=False)
             cases.append({"name": f"{mat}(1.0)/{strat}",
                           "sched": schedule_for_transformed(ts),
-                          "lib": lower_with_diag(ts.A, ts.diag)})
+                          "lib": lower_with_diag(ts.A, ts.diag),
+                          "metrics": ts.metrics})
             psched, _, _ = schedule_for_preamble(ts)
             if psched is not None:
                 cases.append({"name": f"{mat}(1.0)/{strat}/preamble",
@@ -462,6 +502,46 @@ def build_cases():
     cases.append({"name": f"arrow({ARROW_K})",
                   "sched": schedule_for_csr(W, build_levels(W)), "lib": W})
     return cases
+
+
+# Table I's code size (experiments/table1.csv, the JAX package's run on
+# the same analogues): MB of the generated C source after each strategy
+TABLE1_CODE_MB = {("lung2_like", "no_rewriting"): 10.8,
+                  ("lung2_like", "avgLevelCost"): 10.8,
+                  ("lung2_like", "manual_every_k"): 10.8,
+                  ("torso2_like", "no_rewriting"): 19.2,
+                  ("torso2_like", "avgLevelCost"): 19.5,
+                  ("torso2_like", "manual_every_k"): 30.2}
+
+
+def table1_code_size(cases: list) -> list:
+    """The port's `transform(...).metrics` code size (codegen=True, the
+    default) for lung2 and torso2 at scale 1.0 under no_rewriting,
+    avgLevelCost (from phase 3's cases) and manual_every_k, beside
+    experiments/table1.csv's."""
+    from repro_torch.core.portfolio import make_strategy
+    from repro_torch.core.transform import transform
+    from repro_torch.sparse import generators
+    metrics = {tuple(c["name"].split("(1.0)/")): c["metrics"]
+               for c in cases if "metrics" in c}
+    for mat in ("lung2_like", "torso2_like"):
+        metrics[(mat, "manual_every_k")] = transform(
+            getattr(generators, mat)(1.0), make_strategy("manual_every_k"),
+            validate=False).metrics
+    rows = []
+    for (mat, strat), csv_mb in TABLE1_CODE_MB.items():
+        m = metrics[(mat, strat)]
+        rows.append({"matrix": mat, "strategy": strat,
+                     "levels": m.num_levels_after,
+                     "code_MB_before": m.code_bytes_before / 1e6,
+                     "code_MB": m.table1_row()["code_MB"],
+                     "table1_csv_code_MB": csv_mb})
+        log(f"  code size {mat}(1.0) {strat:15s} levels "
+            f"{m.num_levels_after:4d}: {rows[-1]['code_MB']:.3f} MB "
+            f"(before {rows[-1]['code_MB_before']:.3f}; "
+            f"experiments/table1.csv {csv_mb})")
+        check(rows[-1]["code_MB"] > 0, f"no code size for {mat} {strat}")
+    return rows
 
 
 def arrow(k: int, seed: int = SEED):
@@ -737,7 +817,10 @@ def run_spmv_csr_cases(name: str, A, rng) -> list:
 
 
 def phase_kernels(rng) -> tuple:
+    """K1-K4 against their plain versions (module doc, phase 3), and
+    Table I's code size: (rows, code size rows)."""
     cases = build_cases()
+    code_size = table1_code_size(cases)
     by_name = {c["name"]: c for c in cases}
     rows = [run_case("sptrsv_groups", c, 1, rng) for c in cases]
     for name in ("lung2_like(1.0)/no_rewriting",
@@ -760,7 +843,7 @@ def phase_kernels(rng) -> tuple:
         "spd_from_lower(lung2_like(1.0))",
         generators.spd_from_lower(generators.lung2_like(1.0), seed=0), rng)
     log(f"  K4's cases took {time.perf_counter() - t0:.1f} s")
-    return rows
+    return rows, code_size
 
 
 def oracle(M, b: np.ndarray, transpose: bool = False) -> np.ndarray:
@@ -1128,10 +1211,23 @@ def log_candidates(rows: list) -> None:
             f"pre_steps={r['preamble_steps']:4d} launches={r['launches']}")
 
 
+def served_candidates():
+    """The default candidates less critical_path's two, whose host
+    transforms of lung2 take most of two minutes (PERF.md §5): what phase
+    6 measures on lung2 (torso2 keeps every candidate and its IC(0) pair,
+    so every check of the phase runs at full scale on one matrix), and
+    what the background tunes of phases 8 and 12 run."""
+    from repro_torch.core.portfolio import default_candidates
+    from repro_torch.core.strategies import CriticalPathRewrite
+    return [c for c in default_candidates()
+            if not isinstance(c, CriticalPathRewrite)]
+
+
 def phase_tuner(rng, cache_dir: str) -> tuple:
     """The strategy-portfolio tuner on the card at full size (module doc,
     phase 6); `from_csr(L)` as a user calls it on torso2 keeps its operator
-    in `cache_dir` for phase 7.  Returns (result, launch counts of this
+    in `cache_dir` for phase 7.  Its three sections' seconds per matrix
+    land in res["sections_s"].  Returns (result, launch counts of this
     path)."""
     from repro_torch.core.portfolio import (StrategyPortfolio,
                                             default_candidates,
@@ -1164,7 +1260,9 @@ def phase_tuner(rng, cache_dir: str) -> tuple:
     Preconditioner.clear_pair_decisions()
     K.reset_launch_counts()
     res = {"committed_cost_model": dataclasses.asdict(
-        default_cost_model_for("cuda"))}
+        default_cost_model_for("cuda")),
+        "sections_s": {"profile_and_fit": 0.0, "candidates": {},
+                       "pairs": {}}}
 
     # 1. K1's stamped profile of both no_rewriting sweeps, and the fit
     t0 = time.perf_counter()
@@ -1222,6 +1320,7 @@ def phase_tuner(rng, cache_dir: str) -> tuple:
             f"{max_mhz:.0f} max) launch_us="
             f"{prof.launch_us:.2f} fitted_total_ms={fit_us / 1e3:.4f} "
             f"x stamped == serving")
+    res["sections_s"]["profile_and_fit"] = time.perf_counter() - t0
     log(f"  calibrated on lung2_like(1.0) and torso2_like(1.0) in "
         f"{res['calibrate_s']:.1f} s: {res['calibrated_cost_model']}")
     log(f"  committed constants: {res['committed_cost_model']}")
@@ -1253,7 +1352,9 @@ def phase_tuner(rng, cache_dir: str) -> tuple:
         b = rng.standard_normal(L.n_rows)
         t0 = time.perf_counter()
         L_eff = orient_lower(L, "lower", False)[0]
-        full = StrategyPortfolio(measure_top_k=len(default_candidates()),
+        pool = served_candidates() if mat == "lung2_like" else None
+        width = len(pool or default_candidates())
+        full = StrategyPortfolio(candidates=pool, measure_top_k=width,
                                  device=DEVICE).tune(L_eff)
         secs = time.perf_counter() - t0
         rows = candidate_rows(full, model)
@@ -1269,14 +1370,16 @@ def phase_tuner(rng, cache_dir: str) -> tuple:
             f"{entry['all_measured']['model_pick']}, calibrated model's "
             f"{entry['all_measured']['calibrated_pick']}")
         log_candidates(rows)
+        entry["candidate_labels"] = [r["label"] for r in rows]
         for mode, k in (("model", 0), ("measured_top3", 3)):
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             op = TriangularOperator.from_csr(L, portfolio=ReusedCandidates(
-                full, measure_top_k=k, device=DEVICE))
+                full, candidates=pool, measure_top_k=k, device=DEVICE))
             entry[mode] = served(op, mat, f"measure_top_k={k}",
-                                 time.perf_counter() - t0, b)
+                                 time.perf_counter() - t1, b)
             log_candidates(entry[mode]["candidates"])
         res["operators"][mat] = entry
+        res["sections_s"]["candidates"][mat] = time.perf_counter() - t0
     # the entry point as a user calls it, on torso2 (lung2's ten
     # transforms take two minutes): its pick is the model mode's
     t0 = time.perf_counter()
@@ -1285,6 +1388,8 @@ def phase_tuner(rng, cache_dir: str) -> tuple:
     entry["default"] = served(op, "torso2_like", "default",
                               time.perf_counter() - t0,
                               rng.standard_normal(op.n))
+    res["sections_s"]["candidates"]["torso2_like"] += \
+        time.perf_counter() - t0
     check(op.strategy == entry["model"]["pick"],
           f"torso2_like: from_csr(L) picks {op.strategy}, the model mode "
           f"on the same transforms {entry['model']['pick']}")
@@ -1294,6 +1399,9 @@ def phase_tuner(rng, cache_dir: str) -> tuple:
     # avgLevelCost on the same factors, timed in turns
     res["pairs"] = {}
     for mat, L in mats.items():
+        if mat == "lung2_like":
+            continue            # the pair tuner runs on torso2 alone
+        t_pair = time.perf_counter()
         A = generators.spd_from_lower(L, seed=0)
         n = A.n_rows
         b_np = A.matvec(rng.standard_normal(n))
@@ -1336,12 +1444,15 @@ def phase_tuner(rng, cache_dir: str) -> tuple:
         for label in precs:
             entry[label]["staged_ms"] = staged[label]
         res["pairs"][mat] = entry
+        res["sections_s"]["pairs"][mat] = time.perf_counter() - t_pair
         log(f"  Preconditioner.ic0(spd_from_lower({mat}(1.0))): pick "
             f"{P.strategy} in {secs:.1f} s; staged PCG ms (in turns) "
             + ", ".join(f"{k} {v['strategy']} {v['iterations']} it "
                         f"{'/'.join(f'{t:.3f}' for t in v['staged_ms'])}"
                         for k, v in entry.items()
                         if isinstance(v, dict) and "staged_ms" in v))
+    log(f"  phase 6 sections (s): "
+        f"{json.dumps(res['sections_s'])}")
     counts = dict(K.LAUNCHES)
     log(f"  launches on the tuner's path: {counts}")
     check(counts["sptrsv_groups"] > 0 and counts["sptrsv_groups_stamped"] > 0,
@@ -2047,10 +2158,8 @@ def log_serving(res: dict) -> None:
 def phase_serving(rng) -> tuple:
     """The solve service on the card at full size (module doc, phase 8).
     Returns (result, launch counts of this path)."""
-    from repro_torch.core.portfolio import (StrategyPortfolio,
-                                            default_candidates)
-    from repro_torch.core.strategies import (CriticalPathRewrite,
-                                             strategy_label)
+    from repro_torch.core.portfolio import StrategyPortfolio
+    from repro_torch.core.strategies import strategy_label
     from repro_torch.kernels import sptrsv_level as K
     from repro_torch.serving import OperatorRegistry, SolveService
     from repro_torch.serving.server import build_matrices
@@ -2064,8 +2173,7 @@ def phase_serving(rng) -> tuple:
     # background tune runs the default candidates less critical_path's
     # two, whose host transforms of lung2 take most of two minutes
     # (PERF.md §5)
-    pool = [c for c in default_candidates()
-            if not isinstance(c, CriticalPathRewrite)]
+    pool = served_candidates()
     reg = OperatorRegistry(tune_mode="background", cache=False,
                            device=DEVICE, portfolio=StrategyPortfolio(
                                candidates=pool, device=DEVICE))
@@ -3267,10 +3375,436 @@ def phase_sharded(rng, refs: dict) -> tuple:
     return res, counts
 
 
+# -- phase 12: the solve service under a mesh -------------------------------
+
+MESH_WAVE = 8               # requests a wave of the NCCL world of one
+MESH_FAULT_WIDTH = 3        # requests of the batch whose sharded call fails
+MESH_GLOO_REQUESTS = 8      # requests rank 0 of the two gloo ranks serves
+MESH_GLOO_WIDTH = 4
+# the two gloo ranks' auto-mode part: on pattern 0 (lung2) 4 requests,
+# then 4 over patterns 0 and 1 (torso2, new to the service), then 2 left
+# lingering at close(); its tunes run these two candidates
+MESH_GLOO_AUTO = [0] * 4 + [0, 1] * 2 + [0, 1]
+MESH_GLOO_TUNE = ("no_rewriting", "avgLevelCost")
+MESH_RANK_TIMEOUT_S = 600
+
+
+def mesh_wave(mats: list, steps: dict, step: int, seed: int) -> list:
+    """A wave of MESH_WAVE requests: request i on pattern i % 2 at value
+    step `step` (`serving.server.step_values`, memoized in `steps`), each
+    with a right-hand side of its own."""
+    from repro_torch.serving.server import step_values
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(MESH_WAVE):
+        key = (i % len(mats), step)
+        if key not in steps:
+            steps[key] = mats[key[0]] if step == 0 else \
+                step_values(mats[key[0]], step)
+        M = steps[key]
+        out.append((M, rng.standard_normal(M.n_rows)))
+    return out
+
+
+def mesh_submit(svc, reqs: list) -> list:
+    """Submit `reqs` at once from SERVE_TENANTS threads: their futures."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(SERVE_TENANTS) as pool:
+        return list(pool.map(
+            lambda ib: svc.submit(ib[1][1], ib[1][0],
+                                  tenant=f"tenant-{ib[0] % SERVE_TENANTS}"),
+            enumerate(reqs)))
+
+
+def mesh_checked(reqs: list, futs: list) -> float:
+    """Every answer within ORACLE_RTOL of the float64 oracle: the worst
+    error."""
+    worst = 0.0
+    for (M, b), f in zip(reqs, futs):
+        x = f.result(timeout=600)
+        ref = oracle(M, b)
+        err = float(np.abs(np.asarray(x, np.float64) - ref).max()) / max(
+            1.0, float(np.abs(ref).max()))
+        check(np.isfinite(x).all() and err <= ORACLE_RTOL,
+              f"a served answer off the oracle by {err:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def gloo_auto_requests(mats: list) -> list:
+    """The requests of the gloo ranks' auto-mode part: (matrix, b)."""
+    rng = np.random.default_rng(SEED + 5)
+    return [(mats[k], rng.standard_normal(mats[k].n_rows))
+            for k in MESH_GLOO_AUTO]
+
+
+def mesh_serve_auto(rank: int, mesh, mats: list) -> dict:
+    """The gloo ranks' auto-mode part: rank 0 submits from SERVE_TENANTS
+    threads with background tunes (MESH_GLOO_TUNE, model mode) between
+    batches, a pattern arriving after traffic started, and close() while
+    requests linger; rank 1 follows.  Its arrays: rank 0's answers per
+    request, rank 1's per batch, and the command order."""
+    from repro_torch.core.portfolio import (StrategyPortfolio,
+                                            default_cost_model_for)
+    from repro_torch.core.strategies import strategy_label
+    from repro_torch.serving import OperatorRegistry, SolveService
+    from repro_torch.solver import sharded_engine
+    from repro_torch.solver import distributed as D
+    eng = sharded_engine(mesh)
+    reg = OperatorRegistry(
+        mesh=mesh, tune_mode="background", cache=False,
+        portfolio=StrategyPortfolio(
+            candidates=[c for c in served_candidates()
+                        if strategy_label(c) in MESH_GLOO_TUNE],
+            engine=eng, device=D.mesh_device(mesh),
+            cost_model=default_cost_model_for(eng)))
+    svc = SolveService(registry=reg, max_width=MESH_GLOO_WIDTH,
+                       max_linger_s=SERVE_LINGER_S, tenant_cap=256)
+    arrays = {}
+    if rank == 0:
+        reqs = gloo_auto_requests(mats)
+        futs = mesh_submit(svc, reqs[:4]) + mesh_submit(svc, reqs[4:8])
+        warm = svc.wait_warm(timeout=MESH_RANK_TIMEOUT_S)
+        futs += [svc.submit(b, M) for M, b in reqs[8:]]
+        lingering = svc._batcher.pending()
+        svc.close()
+        arrays.update({f"auto_x{i}": f.result(timeout=MESH_RANK_TIMEOUT_S)
+                       for i, f in enumerate(futs)})
+        arrays.update(auto_warm=warm, auto_lingering=lingering)
+    else:
+        got = []
+        svc.follow(on_batch=lambda key, x: got.append(np.asarray(x)))
+        arrays.update({f"auto_batch{j}": x for j, x in enumerate(got)})
+    snap = svc.snapshot()
+    arrays.update(auto_log=json.dumps(list(svc.mesh_log)),
+                  auto_hot_swaps=snap["registry"]["hot_swaps"])
+    reg.close()
+    return arrays
+
+
+def mesh_serve_rank(rank: int, store: str, out: str) -> int:
+    """One of phase 12's two gloo ranks on cuda:0, in a process of its own:
+    `SolveService(mesh=default_mesh())` over lung2_like(1.0) no_rewriting,
+    rank 0 serving MESH_GLOO_REQUESTS requests in pump mode (batches of
+    MESH_GLOO_WIDTH, in order), rank 1 following; then the auto-mode part
+    (`mesh_serve_auto`) over lung2_like(1.0) and torso2_like(1.0).  Each
+    rank's answers saved to `out` (.npz: rank 0 per request, rank 1 per
+    batch)."""
+    import torch.distributed as dist
+    from repro_torch.serving import SolveService
+    from repro_torch.solver.distributed import default_mesh
+    from repro_torch.sparse import generators
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = default_mesh()
+        L = generators.lung2_like(1.0)
+        svc = SolveService(mesh=mesh, max_width=MESH_GLOO_WIDTH,
+                           max_linger_s=60.0, auto_dispatch=False,
+                           tune_mode="off", cache=False)
+        t0 = time.perf_counter()
+        if rank == 0:
+            rng = np.random.default_rng(SEED)
+            B = rng.standard_normal((MESH_GLOO_REQUESTS, L.n_rows))
+            futs = [svc.submit(b, L) for b in B]
+            svc.pump()
+            xs = [f.result(timeout=0) for f in futs]
+            svc.close()
+            arrays = {f"x{i}": x for i, x in enumerate(xs)}
+        else:
+            got = []
+            svc.follow(on_batch=lambda key, x: got.append(np.asarray(x)))
+            arrays = {f"batch{j}": x for j, x in enumerate(got)}
+        snap = svc.snapshot()
+        engines = sorted({e.op.engine for _, e in svc.registry.entries()})
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arrays.update(mesh_serve_auto(rank, mesh, [
+            L, generators.torso2_like(1.0)]))
+        np.savez(out, seconds=seconds, auto_seconds=time.perf_counter() - t0,
+                 log=json.dumps(list(svc.mesh_log)),
+                 snapshot=json.dumps(snap, default=str),
+                 engines=json.dumps(engines), **arrays)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_two_ranks(tmp: Path) -> dict:
+    """Phase 12's two gloo ranks on the one card (processes of their own,
+    `--mesh-serve-rank`): rank 0's answers within the oracle's gate,
+    bitwise equal to rank 1's batch columns, one command order."""
+    from repro_torch.sparse import generators
+    store = tmp / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-serve-rank",
+         str(r), str(store), str(tmp / f"rank{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=MESH_RANK_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    for proc, text in zip(procs, logs):
+        check(proc.returncode == 0, f"a gloo serving rank exited "
+              f"{proc.returncode}: {text[-2000:]}")
+    r0, r1 = (dict(np.load(tmp / f"rank{r}.npz")) for r in range(2))
+    L = generators.lung2_like(1.0)
+    B = np.random.default_rng(SEED).standard_normal(
+        (MESH_GLOO_REQUESTS, L.n_rows))
+    xs = [r0[f"x{i}"] for i in range(MESH_GLOO_REQUESTS)]
+    worst = 0.0
+    for b, x in zip(B, xs):
+        ref = oracle(L, b)
+        worst = max(worst, float(np.abs(x - ref).max()) / max(
+            1.0, float(np.abs(ref).max())))
+    batches = [r1[f"batch{j}"] for j in range(
+        -(-MESH_GLOO_REQUESTS // MESH_GLOO_WIDTH))]
+    same = all(np.array_equal(
+        xs[i], batches[i // MESH_GLOO_WIDTH][:, i % MESH_GLOO_WIDTH])
+        for i in range(MESH_GLOO_REQUESTS))
+    snap0, snap1 = json.loads(str(r0["snapshot"])), \
+        json.loads(str(r1["snapshot"]))
+    # the auto-mode part: one command order, every answer on the oracle
+    # and bitwise among the follower's batch columns
+    mats = [L, generators.torso2_like(1.0)]
+    cols = []
+    for key in sorted((k for k in r1 if k.startswith("auto_batch")),
+                      key=lambda k: int(k[len("auto_batch"):])):
+        c = r1[key]
+        cols += [c[:, j] for j in range(c.shape[1])] if c.ndim == 2 else [c]
+    auto_worst, auto_same = 0.0, True
+    for i, (M, b) in enumerate(gloo_auto_requests(mats)):
+        x, ref = r0[f"auto_x{i}"], oracle(M, b)
+        auto_worst = max(auto_worst, float(np.abs(x - ref).max()) / max(
+            1.0, float(np.abs(ref).max())))
+        auto_same = auto_same and any(np.array_equal(x, c) for c in cols)
+    auto_log = json.loads(str(r0["auto_log"]))
+    auto = {"requests": len(MESH_GLOO_AUTO), "worst_err": auto_worst,
+            "bitwise_equal": auto_same,
+            "same_order": str(r0["auto_log"]) == str(r1["auto_log"]),
+            "commands": [k for k, _ in auto_log],
+            "warm": bool(r0["auto_warm"]),
+            "lingering_at_close": int(r0["auto_lingering"]),
+            "hot_swaps": [int(r0["auto_hot_swaps"]),
+                          int(r1["auto_hot_swaps"])],
+            "seconds": [float(r0["auto_seconds"]),
+                        float(r1["auto_seconds"])]}
+    check(auto["same_order"] and auto_same and auto["warm"] and
+          auto_worst <= ORACLE_RTOL and auto["hot_swaps"] == [2, 2] and
+          auto["commands"].count("tune") == 2,
+          f"two gloo serving ranks in auto mode: {auto}")
+    out = {"case": "lung2_like(1.0)/no_rewriting, 2 gloo ranks on cuda:0",
+           "requests": MESH_GLOO_REQUESTS, "worst_err": worst,
+           "bitwise_equal": same,
+           "same_order": str(r0["log"]) == str(r1["log"]),
+           "engines": json.loads(str(r0["engines"])),
+           "commands": snap0["mesh"]["commands"],
+           "batches": [snap0["batches"], snap1["batches"]],
+           "seconds": [float(r0["seconds"]), float(r1["seconds"])],
+           "auto": auto}
+    check(same and out["same_order"], f"two gloo serving ranks: {out}")
+    check(worst <= ORACLE_RTOL and snap0["completed"] == MESH_GLOO_REQUESTS
+          and out["engines"] == ["sharded"], f"two gloo serving ranks: "
+          f"{out}")
+    return out
+
+
+def phase_mesh_service(rng, refs: dict) -> tuple:
+    """The solve service under a mesh on the card (module doc, phase 12).
+    Returns (result, launch counts of this path)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import faults
+    from repro_torch.core.portfolio import (StrategyPortfolio,
+                                            default_cost_model_for)
+    from repro_torch.core.resilience import ShardedCallError
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.serving import OperatorRegistry, SolveService
+    from repro_torch.solver import TriangularOperator, sharded_engine
+    from repro_torch.solver import distributed as D
+    from repro_torch.sparse import generators
+    res = {}
+    TriangularOperator.clear_memory_cache()
+    K.reset_launch_counts()
+    r0 = refs["calls"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = D.default_mesh()
+        eng = sharded_engine(mesh)
+        mats = [generators.lung2_like(1.0), generators.torso2_like(1.0)]
+        reg = OperatorRegistry(
+            mesh=mesh, tune_mode="background", cache=False,
+            portfolio=StrategyPortfolio(
+                candidates=served_candidates(), engine=eng,
+                device=D.mesh_device(mesh),
+                cost_model=default_cost_model_for(eng)))
+        steps, worst = {}, 0.0
+        svc = SolveService(max_width=SERVE_WIDTH,
+                           max_linger_s=SERVE_LINGER_S, tenant_cap=256,
+                           registry=reg)
+        try:
+            t0 = time.perf_counter()
+            # 1. warming: served untuned while the tunes wait their turn
+            wave = mesh_wave(mats, steps, 0, SEED)
+            worst = max(worst, mesh_checked(wave, mesh_submit(svc, wave)))
+            res["states_after_first_wave"] = dict(reg.stats()["states"])
+            # 2. the tunes run on the mesh thread, between batches
+            check(svc.wait_warm(timeout=900), "the tunes under the mesh did "
+                  "not finish within 900 s")
+            res["hot_swap_s"] = time.perf_counter() - t0
+            # 3. new values on the tuned operators: re-binds
+            wave = mesh_wave(mats, steps, 1, SEED + 1)
+            worst = max(worst, mesh_checked(wave, mesh_submit(svc, wave)))
+            # 4. one batch whose sharded call fails at a step (one-shot):
+            # every future of it resolves with the agreed error, and the
+            # next batch is served
+            b0 = dict(svc.stats.width_hist)
+            e0 = svc.stats.batch_errors
+            M = steps[(0, 1)]
+            fault_reqs = [(M, rng.standard_normal(M.n_rows))
+                          for _ in range(MESH_FAULT_WIDTH)]
+            with faults.fail_sharded_step(step=3, times=1):
+                futs = mesh_submit(svc, fault_reqs)
+                outcomes = []
+                for f in futs:
+                    try:
+                        f.result(timeout=600)
+                        outcomes.append("served")
+                    except ShardedCallError as e:
+                        outcomes.append(f"ShardedCallError: {e.reason}")
+            failed = [o for o in outcomes if o != "served"]
+            res["fault"] = {
+                "outcomes": outcomes,
+                "batches": sum(svc.stats.width_hist.values())
+                - sum(b0.values()),
+                "batch_errors": svc.stats.batch_errors - e0,
+                "all_resolved": all(f.done() for f in futs)}
+            check(res["fault"]["all_resolved"] and failed and
+                  res["fault"]["batch_errors"] == 1,
+                  f"the faulted batch: {res['fault']}")
+            # 5. hot traffic after the failure
+            wave = mesh_wave(mats, steps, 0, SEED + 2)
+            t_hot = time.perf_counter()
+            futs = mesh_submit(svc, wave)
+            worst = max(worst, mesh_checked(wave, futs))
+            res["hot_requests_per_s"] = len(wave) / (time.perf_counter()
+                                                     - t_hot)
+            res["seconds_serving"] = time.perf_counter() - t0
+            entries = list(reg.entries())
+            res["families"] = {}
+            for ekey, e in entries:
+                g = D.count_all_gathers(e.op.schedule, mesh)
+                res["families"][ekey.pattern_fp[:8]] = g
+                check(e.op.engine == "sharded" and g["families"] ==
+                      g["steps"] == e.op.schedule.num_steps,
+                      f"a served operator on {e.op.engine}: {g}")
+            snap = svc.snapshot()
+        finally:
+            svc.close()
+            reg.close()
+        regs = snap["registry"]
+        dropped = snap["submitted"] - snap["completed"] - snap["failed"]
+        res.update({
+            "requests": snap["submitted"], "completed": snap["completed"],
+            "failed": snap["failed"], "dropped": dropped,
+            "mean_width": snap["mean_width"],
+            "queue_ms": snap["queue_ms"], "solve_ms": snap["solve_ms"],
+            "requests_per_s": snap["submitted"] / res["seconds_serving"],
+            "hot_swaps": regs["hot_swaps"],
+            "value_rebinds": regs["value_rebinds"],
+            "states": dict(regs["states"]), "mesh": snap["mesh"],
+            "worst_err": worst,
+            "strategies": sorted(str(e.op.strategy) for _, e in entries)})
+        check(dropped == 0 and snap["failed"] == len(failed),
+              f"dropped {dropped}, failed {snap['failed']}")
+        check(regs["hot_swaps"] >= 1 and regs["value_rebinds"] >= 1,
+              f"no hot swap or no re-bind under the mesh: {regs}")
+    finally:
+        dist.destroy_process_group()
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-serve-") as tmp:
+        res["two_ranks"] = mesh_two_ranks(Path(tmp))
+    res["two_ranks_s"] = time.perf_counter() - t2
+    counts = dict(K.LAUNCHES)
+    res["reference_solves"] = refs["calls"] - r0
+    log(f"  served {res['requests']} requests under an NCCL mesh of one: "
+        f"{res['requests_per_s']:.2f} requests/s (hot "
+        f"{res['hot_requests_per_s']:.2f}), mean width "
+        f"{res['mean_width']:.2f}, queue ms p50/p99 "
+        f"{res['queue_ms']['p50']:.1f}/{res['queue_ms']['p99']:.1f}, solve "
+        f"ms p50/p99 {res['solve_ms']['p50']:.1f}/"
+        f"{res['solve_ms']['p99']:.1f}, hot swaps {res['hot_swaps']} in "
+        f"{res['hot_swap_s']:.1f} s, re-binds {res['value_rebinds']}, "
+        f"worst error {res['worst_err']:.2e}, dropped {res['dropped']}; "
+        f"picks {res['strategies']}; families {res['families']}")
+    log(f"  the faulted batch: {json.dumps(res['fault'])}")
+    log(f"  two gloo ranks: {json.dumps(res['two_ranks'])}")
+    log(f"  launches under the mesh: {counts}; host reference solves "
+        f"{res['reference_solves']}")
+    check(counts["plain"] == 0,
+          f"the plain version ran under the mesh: {counts}")
+    check(res["reference_solves"] == 0, f"the host reference served "
+          f"{res['reference_solves']} solves under the mesh")
+    return res, counts
+
+
+# -- phase 13: the examples --------------------------------------------------
+
+# each example's arguments on the card (its default device, cuda)
+EXAMPLE_ARGS = {"quickstart": [], "pcg_ic0": [], "timestepping": [],
+                "transform_study": ["--scale", "0.25"]}
+
+
+def phase_examples() -> tuple:
+    """The four examples' `main` on the card, each timed.  Returns
+    (result, launch counts of this path)."""
+    import importlib.util
+    from repro_torch.kernels import sptrsv_level as K
+    from repro_torch.solver import TriangularOperator
+    K.reset_launch_counts()
+    res = {}
+    for name, argv in EXAMPLE_ARGS.items():
+        TriangularOperator.clear_memory_cache()
+        spec = importlib.util.spec_from_file_location(
+            f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        secs = time.perf_counter() - t0
+        res[name] = {"argv": argv, "seconds": secs,
+                     "launches": {k: v - before.get(k, 0)
+                                  for k, v in K.LAUNCHES.items()},
+                     "result": {str(k): v for k, v in out.items()}}
+        log(f"  example {name} {' '.join(argv)}: {secs:.1f} s, launches "
+            f"{res[name]['launches']}")
+    q = res["quickstart"]["result"]
+    check(q["err"] <= REFINE_TOL and q["err_batched"] <= REFINE_TOL
+          and q["err_transpose"] <= REFINE_TOL and q["err_grad"] <= 1e-5,
+          f"the quickstart's answers: {q}")
+    check(res["timestepping"]["result"]["drift_rejected"],
+          "the time stepper absorbed a drifted pattern")
+    counts = dict(K.LAUNCHES)
+    check(counts["sptrsv_groups"] > 0 and counts["sptrsv_groups_multi"] > 0,
+          f"a kernel of the examples' path was never launched: {counts}")
+    check(counts["plain"] == 0,
+          f"the plain version ran in the examples: {counts}")
+    return res, counts
+
+
 def kernels_line(krows: list, *path_counts: dict,
                  served_err: dict | None = None) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the main paths (phases 4 to 11)."""
+    launches summed over the main paths (phases 4 to 13)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -3326,6 +3860,10 @@ def main(argv=None) -> int:
                     metavar=("RANK", "STORE", "OUT"),
                     help="run one of phase 11's two gloo ranks (started "
                          "by phase 11 itself)")
+    ap.add_argument("--mesh-serve-rank", nargs=3,
+                    metavar=("RANK", "STORE", "OUT"),
+                    help="run one of phase 12's two gloo serving ranks "
+                         "(started by phase 12 itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3334,6 +3872,9 @@ def main(argv=None) -> int:
     if args.sharded_rank:
         rank, store, out = args.sharded_rank
         return sharded_rank(int(rank), store, out)
+    if args.mesh_serve_rank:
+        rank, store, out = args.mesh_serve_rank
+        return mesh_serve_rank(int(rank), store, out)
     # the operators' disk cache goes to a directory of this run's own,
     # removed at its end; phase 6 leaves its tuned torso2 operator in
     # `tuned_dir` for phase 7's new process
@@ -3372,7 +3913,7 @@ def run(args, tuned_dir: str) -> int:
         log(card["nvidia_smi"])
         return 0
     log("== 3. kernels against their plain versions")
-    krows = phase_kernels(rng)
+    krows, code_size = phase_kernels(rng)
     refs = count_reference_solves()
     log("== 4. main path")
     mrows, counts = phase_main_path(rng)
@@ -3412,9 +3953,19 @@ def run(args, tuned_dir: str) -> int:
     shard, shard_counts = phase_sharded(rng, refs)
     shard["seconds"] = time.perf_counter() - t11
     log(f"  phase 11 took {shard['seconds']:.1f} s")
+    log("== 12. the solve service under a mesh")
+    t12 = time.perf_counter()
+    mserve, mserve_counts = phase_mesh_service(rng, refs)
+    mserve["seconds"] = time.perf_counter() - t12
+    log(f"  phase 12 took {mserve['seconds']:.1f} s")
+    log("== 13. the examples")
+    t13 = time.perf_counter()
+    examples, example_counts = phase_examples()
+    examples["seconds"] = time.perf_counter() - t13
+    log(f"  phase 13 took {examples['seconds']:.1f} s")
     line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts,
                         serve_counts, static_counts, resil_counts,
-                        shard_counts,
+                        shard_counts, mserve_counts, example_counts,
                         served_err=serve["kernels_vs_plain_max_abs_err"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3427,7 +3978,10 @@ def run(args, tuned_dir: str) -> int:
          "serving_launches": serve_counts, "static": static,
          "static_launches": static_counts, "resilience": resil,
          "resilience_launches": resil_counts, "sharded": shard,
-         "sharded_launches": shard_counts, "kernels_line": line,
+         "sharded_launches": shard_counts, "mesh_service": mserve,
+         "mesh_service_launches": mserve_counts, "examples": examples,
+         "examples_launches": example_counts, "code_size": code_size,
+         "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(card["nvidia_smi"])

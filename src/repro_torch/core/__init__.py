@@ -6,6 +6,7 @@ from .strategies import (AvgLevelCost, ConstrainedAvgLevelCost,
                          Strategy, StrategyStats, strategy_label)
 from .transform import (TransformMetrics, TransformedSystem,
                         replay_transform, transform)
+from .codegen import generate_c_source, generated_code_bytes
 from .portfolio import (STRATEGY_REGISTRY, PairReport, PortfolioCandidate,
                         PortfolioReport, StrategyPortfolio,
                         default_candidates, default_cost_model_for,

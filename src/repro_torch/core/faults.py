@@ -16,7 +16,9 @@ repair and host-reference paths) or raises a typed, actionable error:
   stalled tuner (`fail_tuner`, `slow_tuner`), corrupt disk-cache entries
   (`corrupt_cache_entries`), a stalled profiler step (`slow_step`), a
   lost mesh (`lose_mesh`: the sharded lowering fails, and a sharded
-  operator falls back to K1 on a card, to the plain body on the CPU).
+  operator falls back to K1 on a card, to the plain body on the CPU), a
+  sharded step that raises on this rank (`fail_sharded_step`: every rank
+  of the mesh raises the same `ShardedCallError`).
 
     from repro_torch.core import faults
 
@@ -37,10 +39,11 @@ Injectors patch the port's own seams (`solver.schedule.
 schedule_for_transformed`, `solver.schedule.repack_schedule_values`,
 `core.transform.transform`, the engine registry's instances,
 `StrategyPortfolio.tune`, `obs.profile._STEP_FAULT`,
-`solver.distributed.lower_sharded`) — never torch or
-numpy — so a fault is scoped, deterministic, and cannot leak outside the
-context.  The schedule faults reach the SpTRSV kernel's packed tiles on a
-card, since the operator packs the schedule they return.  They are test
+`solver.distributed.lower_sharded`, `solver.distributed._STEP_FAULT`) —
+never torch or numpy — so a fault is scoped, deterministic, and cannot
+leak outside the context.  The schedule faults reach the SpTRSV kernel's
+packed tiles on a card, since the operator packs the schedule they
+return.  They are test
 and tooling utilities: nothing in the serving path imports this module.
 """
 from __future__ import annotations
@@ -58,6 +61,7 @@ __all__ = [
     "wrong_schedule_values", "corrupt_values_payload", "pattern_drift",
     "corrupt_cache_entries", "fail_engine_compile", "engine_unavailable",
     "fail_tuner", "slow_tuner", "slow_step", "lose_mesh",
+    "fail_sharded_step",
     # static defects the analysis verifier must reject
     "swap_schedule_steps", "duplicate_schedule_row", "oob_schedule_index",
     "corrupt_plan", "reorder_schedule_step", "duplicate_lane_row",
@@ -503,4 +507,33 @@ def lose_mesh(exc=None):
             "injected mesh device loss: sharded lowering unavailable"))
 
     with _patched(_dist, "lower_sharded", faulty):
+        yield
+
+
+@contextlib.contextmanager
+def fail_sharded_step(step: int = 0, times: int | None = 1, exc=None,
+                      stage: str = "step"):
+    """This rank's sharded sweeps raise at schedule step `step` (the first
+    `times` sweeps that reach it inside the context; None: all of them),
+    as a launch or an out-of-memory in a step would: in the step's local
+    work (`stage="step"`) or in the scatter of what its all_gathers
+    brought (`stage="publish"`).  Arm it on one rank only: the others
+    still finish the sweep, and every rank raises the same
+    `ShardedCallError` naming this one.  The lowering stays memoized, so
+    the next call runs."""
+    from ..solver import distributed as _dist
+    if stage not in ("step", "publish"):
+        raise ValueError(f"stage must be step|publish, got {stage!r}")
+    left = [times]
+
+    def fault(s: int, at: str) -> None:
+        if s != step or at != stage or left[0] == 0:
+            return
+        if left[0] is not None:
+            left[0] -= 1
+        raise (exc if exc is not None else RuntimeError(
+            f"injected failure of sharded step {step} ({stage}) on this "
+            f"rank"))
+
+    with _patched(_dist, "_STEP_FAULT", fault):
         yield

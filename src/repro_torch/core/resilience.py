@@ -30,6 +30,11 @@ Error taxonomy
     ├── AdmissionError           the solve service rejected a request (a
     │                            tenant's in-flight cap); carries
     │                            `.tenant`, `.depth`, `.limit`
+    ├── ShardedCallError         a sharded call, or another step every
+    │                            rank of a mesh axis takes (`distributed.
+    │                            settle`), failed on some rank, raised
+    │                            alike on every rank; carries `.failures`
+    │                            [(rank, reason), ...], `.rank`, `.reason`
     ├── ScheduleInvariantError   a compiled LevelSchedule, or the SpTRSV
     │                            kernel's packed form of one, failed static
     │                            verification (`repro_torch.analysis.verify`):
@@ -77,7 +82,7 @@ import os
 import numpy as np
 
 __all__ = ["ResilienceError", "NumericalHealthError", "EngineFallbackError",
-           "PatternMismatchError", "AdmissionError",
+           "PatternMismatchError", "AdmissionError", "ShardedCallError",
            "ScheduleInvariantError", "TransformInvariantError",
            "ResilienceWarning", "EngineFallbackWarning",
            "HealthRepairWarning", "CacheQuarantineWarning",
@@ -125,6 +130,26 @@ class EngineFallbackError(ResilienceError):
         detail = "; ".join(f"{name}: {reason}" for name, reason in attempts)
         super().__init__(
             f"{where}: every engine in the fallback chain failed — {detail}")
+
+
+class ShardedCallError(ResilienceError):
+    """A sharded call, or another step that every rank of a mesh axis
+    takes (`solver.distributed.settle`: the solve service's admissions,
+    re-binds and tunes), failed on one or more ranks of the axis, and
+    every rank of the axis raises this same error.
+
+    failures: [(rank, reason), ...] in rank order, each reason naming
+    where the call failed on that rank ("its input check", "step k") and
+    what it raised.  `rank` and `reason` are the first failing rank's.
+    The port's own: the reference's one controller raises its error once.
+    """
+
+    def __init__(self, failures: list):
+        self.failures = [(int(r), str(why)) for r, why in failures]
+        self.rank, self.reason = self.failures[0]
+        detail = "; ".join(f"rank {r}: {why}" for r, why in self.failures)
+        super().__init__(f"a step every rank of a mesh axis takes failed, "
+                         f"raised alike on every rank — {detail}")
 
 
 class PatternMismatchError(ResilienceError):

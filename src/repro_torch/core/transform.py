@@ -157,13 +157,8 @@ def _paper_costs(A: CSR, level_of: np.ndarray) -> tuple[np.ndarray, int]:
 
 
 def transform(L: CSR, strategy: Strategy, validate: bool = True,
-              codegen: bool = False, materialize_b: bool = False,
+              codegen: bool = True, materialize_b: bool = False,
               rng_seed: int = 0) -> TransformedSystem:
-    if codegen:
-        raise NotImplementedError(
-            "transform(codegen=True): the generated-code size metric "
-            "(core/codegen.py) is not part of the port yet; pass "
-            "codegen=False")
     view = GraphView(L)
     store = EquationStore(L, view.levels.level_of)
     stats: StrategyStats = strategy.apply(store, view)
@@ -182,7 +177,11 @@ def transform(L: CSR, strategy: Strategy, validate: bool = True,
     # operator cost: the T-factor preamble charges 2*nnz per applied row
     op_total = total_after + int(2 * T.nnz)
 
-    cb_before = cb_after = 0           # codegen metric: not ported yet
+    from .codegen import generated_code_bytes
+    cb_before = generated_code_bytes(
+        _strict_lower_csr(L), None, L.diagonal_fast(),
+        view.levels.level_of) if codegen else 0
+    cb_after = generated_code_bytes(A, None, d, assigned) if codegen else 0
 
     metrics = TransformMetrics(
         strategy=strategy_label(strategy),

@@ -38,6 +38,18 @@ time-stepping workload) do not re-admit: `entry.note_values`
 registers the new payload and `entry.ensure_values` re-binds the live
 operator through `update_values` at batch-dispatch time, under the same
 entry lock that serializes solves, updates, and swaps for that entry.
+
+Sharded operators (`mesh=`, or engine="sharded") are served too.  Every
+rank of the mesh builds, re-binds, tunes and solves the same operator,
+and each of those issues collectives, so every rank must take them in
+one order from one thread.  Under a mesh the registry therefore starts
+no tuner thread: a background tune is deferred (`pending_tunes`) and
+runs when its owner calls `run_tune` on every rank at the same point
+(the `SolveService` does so on its one mesh thread, between batches).
+The ranks agree on each step of a tune (`distributed.settle`): that
+every rank holds the tune, its build, its re-bind to the entry's
+values.  A step that failed on any rank degrades the entry on every
+rank, so no rank swaps in a tuned operator the others lack.
 """
 from __future__ import annotations
 
@@ -57,7 +69,7 @@ from ..solver.operator import (TriangularOperator, matrix_fingerprint,
                                value_fingerprint)
 from .batcher import BatchKey
 
-__all__ = ["EntryKey", "OperatorEntry", "OperatorRegistry"]
+__all__ = ["EntryKey", "OperatorEntry", "OperatorRegistry", "serving_mesh"]
 
 # newest value payloads retained per entry, so in-flight batches keyed by
 # an older value fingerprint can still re-bind and solve correctly while
@@ -77,6 +89,21 @@ class EntryKey:
     dtype: str = "float32"
     side: str = "lower"
     transpose: bool = False
+
+
+def serving_mesh(from_csr_kwargs: dict):
+    """(mesh, axis) whose ranks serve the operators that
+    `TriangularOperator.from_csr(**from_csr_kwargs)` builds together
+    (`mesh=`, or a sharded engine over the default mesh), else None."""
+    if from_csr_kwargs.get("mesh") is None and \
+            from_csr_kwargs.get("engine") is None:
+        return None
+    from ..solver.engines import resolve_placement
+    eng, _ = resolve_placement(
+        from_csr_kwargs.get("engine"), from_csr_kwargs.get("device"),
+        mesh=from_csr_kwargs.get("mesh"),
+        mesh_axis=from_csr_kwargs.get("mesh_axis", "model"))
+    return eng.collective_mesh()
 
 
 class OperatorEntry:
@@ -175,9 +202,10 @@ class OperatorRegistry:
     clock:     injected time source for `admitted_at` stamps (defaults to
                `time.perf_counter`; tests pass a synthetic clock).
     from_csr_kwargs: forwarded to every `TriangularOperator.from_csr`
-               (device=, cache=, cache_dir=, chunk=, engine=, ...);
-               sharded operators (`mesh=`, engine="sharded") are refused
-               with ValueError.
+               (device=, cache=, cache_dir=, chunk=, engine=, mesh=, ...).
+               Under a mesh (`mesh`, see `serving_mesh`) every rank must
+               make the same calls in the same order, and a background
+               tune waits in `pending_tunes` until `run_tune`.
     """
 
     def __init__(self, *, tune="auto", untuned="no_rewriting",
@@ -186,15 +214,9 @@ class OperatorRegistry:
         if tune_mode not in ("background", "sync", "off"):
             raise ValueError(
                 f"tune_mode must be background|sync|off, got {tune_mode!r}")
-        from ..solver.engines import ShardedEngine
-        eng = from_csr_kwargs.get("engine")
-        if "mesh" in from_csr_kwargs or "mesh_axis" in from_csr_kwargs or \
-                eng == "sharded" or isinstance(eng, ShardedEngine):
-            # every rank of a mesh must take the same decisions in the same
-            # order; a background tuner and a worker pool per rank do not
-            raise ValueError("the solve service does not serve sharded "
-                             "operators (mesh=, engine='sharded'); build "
-                             "them with TriangularOperator.from_csr")
+        # (mesh, axis) or None: under a mesh no tuner thread, since its
+        # collectives would interleave the solves' (module doc)
+        self.mesh = serving_mesh(from_csr_kwargs)
         self._clock = clock
         self._tune = tune
         self._untuned = untuned
@@ -206,6 +228,9 @@ class OperatorRegistry:
             collections.OrderedDict()
         self._tuner: concurrent.futures.ThreadPoolExecutor | None = None
         self._tune_jobs: dict = {}        # EntryKey -> Future
+        # under a mesh: EntryKey -> (entry, L) of the tunes not yet run
+        self._deferred: "collections.OrderedDict[EntryKey, tuple]" = \
+            collections.OrderedDict()
         self._closed = False
         # registry-wide lifecycle counters live in a metrics registry so
         # stats() and the Prometheus page read the same ledger; the
@@ -233,26 +258,33 @@ class OperatorRegistry:
 
     # -- admission ------------------------------------------------------------
     def admit(self, L, *, dtype="float32", side: str = "lower",
-              transpose: bool = False):
+              transpose: bool = False, fingerprints: tuple | None = None,
+              build: bool = True):
         """Get-or-create the entry for L's pattern; returns
         (entry, batch_key, created) with the batch key pinned to L's
         CURRENT value fingerprint.  First admission (created=True) builds
         the untuned operator synchronously (bounded latency) and, in
         background mode, schedules the portfolio tune; re-admission with
         new values registers the payload for dispatch-time re-binding and
-        touches nothing else.
+        touches nothing else.  `fingerprints` (pattern, value), when
+        given, are L's, hashed already; `build=False` admits only a known
+        pattern and returns None for a new one (under a mesh, a build
+        must run where the ranks' collectives do).
         """
         dtype = np.dtype(dtype).name
         with _obs.span("registry.admit", dtype=dtype) as asp:
-            ekey = EntryKey(
-                pattern_fp=matrix_fingerprint(L, include_values=False),
-                dtype=dtype, side=side, transpose=bool(transpose))
-            value_fp = value_fingerprint(L)
+            pattern_fp, value_fp = fingerprints if fingerprints else \
+                (matrix_fingerprint(L, include_values=False),
+                 value_fingerprint(L))
+            ekey = EntryKey(pattern_fp=pattern_fp, dtype=dtype, side=side,
+                            transpose=bool(transpose))
             with self._lock:
                 if self._closed:
                     raise RuntimeError("registry is closed")
                 entry = self._entries.get(ekey)
                 created = entry is None
+                if created and not build:
+                    return None
                 if created:
                     entry = self._entries[ekey] = OperatorEntry(ekey)
                     self._admissions.inc()
@@ -292,11 +324,23 @@ class OperatorRegistry:
     # -- background tuning ----------------------------------------------------
     def _schedule_tune(self, entry: OperatorEntry, L) -> None:
         with self._lock:
+            if self.mesh is not None:
+                self._deferred[entry.ekey] = (entry, L)
+                self._tune_jobs[entry.ekey] = concurrent.futures.Future()
+                return
             if self._tuner is None:
                 self._tuner = concurrent.futures.ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="repro-tuner")
             self._tune_jobs[entry.ekey] = self._tuner.submit(
                 self._tune_and_swap, entry, L)
+
+    def _agreed(self, fn, where: str):
+        """fn(); under a mesh agreed by every rank (`distributed.settle`:
+        what raised on any rank raises on every rank)."""
+        if self.mesh is None:
+            return fn()
+        from ..solver.distributed import settle
+        return settle(fn, where, *self.mesh)
 
     def _tune_and_swap(self, entry: OperatorEntry, L) -> None:
         pat = entry.ekey.pattern_fp[:8]
@@ -304,20 +348,25 @@ class OperatorRegistry:
             try:
                 # the slow part runs UNLOCKED: requests keep flowing
                 # through the untuned operator while the portfolio searches
-                tuned = self._build(L, self._tune, entry.ekey)
+                tuned = self._agreed(lambda: self._build(
+                    L, self._tune, entry.ekey), "its tune")
             except Exception as exc:     # noqa: BLE001 - any tuner blow-up
                 self._tune_failed(entry, exc, tsp, pat)
                 return
+
+            def rebind():
+                if entry.bound_fp and \
+                        entry.bound_fp != value_fingerprint(tuned._L):
+                    # values drifted while tuning ran: re-bind the tuned
+                    # operator to the entry's CURRENT payload before it
+                    # is visible to anyone — the swap must not roll
+                    # numerics back
+                    tuned.update_values(entry._values[entry.bound_fp])
+                    entry.value_rebinds += 1
+
             with entry.lock:
                 try:
-                    if entry.bound_fp and \
-                            entry.bound_fp != value_fingerprint(tuned._L):
-                        # values drifted while tuning ran: re-bind the tuned
-                        # operator to the entry's CURRENT payload before it
-                        # is visible to anyone — the swap must not roll
-                        # numerics back
-                        tuned.update_values(entry._values[entry.bound_fp])
-                        entry.value_rebinds += 1
+                    self._agreed(rebind, "its tuned operator's re-bind")
                 except Exception as exc:  # noqa: BLE001 - a re-bind the
                     # tuned transformation cannot follow: not swapped
                     self._tune_failed(entry, exc, tsp, pat)
@@ -348,6 +397,45 @@ class OperatorRegistry:
             f"the untuned operator ({exc})", TunerFailureWarning,
             stacklevel=3)
 
+    def pending_tunes(self) -> list:
+        """Under a mesh, the EntryKeys whose background tune waits for
+        `run_tune`, oldest first (always [] without one)."""
+        with self._lock:
+            return list(self._deferred)
+
+    def run_tune(self, ekey: EntryKey) -> bool:
+        """Run `ekey`'s deferred tune and hot swap on the calling thread
+        (under a mesh, on every rank at the same point of their order).
+        False when none waits; under a mesh, when none waits on some
+        rank, where the others' entries degrade."""
+        with self._lock:
+            job = self._deferred.pop(ekey, None)
+            fut = None if job is None else self._tune_jobs.get(ekey)
+        if self.mesh is None and job is None:
+            return False
+        if fut is not None and not fut.set_running_or_notify_cancel():
+            job = None                      # cancelled by close()
+        try:
+            def held():
+                if job is None:
+                    raise LookupError(f"no tune of {ekey.pattern_fp[:8]} "
+                                      f"waits on this rank")
+
+            try:
+                self._agreed(held, "its tune")
+            except Exception as exc:  # noqa: BLE001 - a rank lacks it
+                if job is not None:
+                    with _obs.span("registry.tune",
+                                   pattern=ekey.pattern_fp[:8]) as tsp:
+                        self._tune_failed(job[0], exc, tsp,
+                                          ekey.pattern_fp[:8])
+                return False
+            self._tune_and_swap(*job)
+        finally:
+            if fut is not None and fut.running():
+                fut.set_result(None)
+        return True
+
     def wait_warm(self, timeout: float | None = None) -> bool:
         """Block until every scheduled tune has finished (swapped or
         degraded).  Returns False on timeout.  Test/benchmark hook — the
@@ -367,9 +455,18 @@ class OperatorRegistry:
                 job = self._tune_jobs.get(victim_key)
                 if job is not None and not job.done():
                     break   # never evict mid-tune; retry on next admission
-                del self._entries[victim_key]
-                self._tune_jobs.pop(victim_key, None)
-                self._evictions.inc()
+                self.evict(victim_key)
+
+    def evict(self, ekey: EntryKey) -> bool:
+        """Drop `ekey`'s entry (over the cap, or a follower applying the
+        first rank's eviction); False when it is not live."""
+        with self._lock:
+            if self._entries.pop(ekey, None) is None:
+                return False
+            self._tune_jobs.pop(ekey, None)
+            self._deferred.pop(ekey, None)
+            self._evictions.inc()
+            return True
 
     # -- lookup / stats -------------------------------------------------------
     def get(self, ekey: EntryKey) -> OperatorEntry | None:
@@ -409,5 +506,8 @@ class OperatorRegistry:
                 return
             self._closed = True
             tuner = self._tuner
+            for ekey in self._deferred:     # deferred tunes never run
+                self._tune_jobs[ekey].cancel()
+            self._deferred.clear()
         if tuner is not None:
             tuner.shutdown(wait=wait, cancel_futures=not wait)

@@ -31,6 +31,30 @@ thread is spawned — width-full batches queue instead of dispatching,
 and `pump()` drains everything synchronously on the calling thread, so
 batching behavior is exactly reproducible.
 
+Under a mesh (`mesh=`, or engine="sharded"; every rank constructs the
+service with the same arguments, at the same point: the construction
+agrees on a command channel) the axis' first rank owns the front door:
+`submit`, the tenant caps, the batcher, admission and eviction, the
+value fingerprints.  It serves through ONE mesh thread (in pump mode,
+the calling thread) that broadcasts each command to the other ranks and
+then runs it: admit a pattern (its CSR), evict, solve a batch (its
+stacked, padded B, and the CSR of a value re-bind), run a deferred tune
+and its hot swap, close.  The other ranks call `follow()`, which runs
+rank 0's commands in rank 0's order until rank 0 closes, so every
+collective on every rank is issued from one thread in one order.  A
+follower waits for the next command on the process group's store (a
+key per command, polled), never inside a collective, so a service may
+sit idle past the group's collective timeout.  Batches run one at a
+time, in dispatch order; a background tune runs between them.  Every
+rank agrees on each step of a command that can fail on one rank alone
+(`distributed.settle`): an admission, a batch's re-bind and its solve,
+a tune's build and its re-bind.  What failed on any rank fails on every
+rank as the same `ShardedCallError` before the next collective: a batch's
+futures carry it and the next batch is served, a failed admission is
+undone on every rank, a failed tune swaps on no rank.  Without a mesh
+nothing of this applies: two workers and a background tuner thread, as
+before.
+
 `ServiceStats` is the observability plane: request/batch counters, the
 batch-width histogram (is coalescing actually happening?), cache-hit
 sources (registry vs the operator cache's built/memory/disk/pattern),
@@ -44,24 +68,42 @@ import collections
 import concurrent.futures
 import threading
 import time
+import uuid
 
 import numpy as np
 
 from ..core.resilience import AdmissionError
 from ..obs import trace as _obs
 from ..obs.metrics import MetricsRegistry, nearest_rank_percentile
-from .batcher import MicroBatcher, SolveRequest
-from .registry import EntryKey, OperatorRegistry
+from ..solver.operator import matrix_fingerprint, value_fingerprint
+from .batcher import Batch, MicroBatcher, SolveRequest
+from .registry import EntryKey, OperatorRegistry, serving_mesh
 
 __all__ = ["SolveService", "ServiceStats"]
 
 _RESERVOIR = 100_000     # latency samples retained per series
+# a follower's poll of the store for rank 0's next command: its first and
+# its longest pause (s); the pause doubles while the service is idle
+_POLL_S = (1e-4, 5e-3)
 
 
 def _percentile(samples, q: float) -> float:
     """Nearest-rank percentile of a list (NaN when empty) — the one
     formula, owned by repro_torch.obs.metrics."""
     return nearest_rank_percentile(samples, q)
+
+
+def _store():
+    """The default process group's store: where rank 0 posts each
+    command's key for the followers (module doc)."""
+    import torch.distributed as dist
+    return dist.distributed_c10d._get_default_store()
+
+
+def _entry_key(key) -> EntryKey:
+    """The registry's key of a batch key's entry."""
+    return EntryKey(pattern_fp=key.pattern_fp, dtype=key.dtype,
+                    side=key.side, transpose=key.transpose)
 
 
 class ServiceStats:
@@ -242,7 +284,11 @@ class SolveService:
                   serving wants throughput, callers wanting refined
                   float64 pass {"max_refine": 6} etc.
     registry:     a pre-configured OperatorRegistry; default builds one
-                  from **registry_kwargs (tune_mode=, cache=, ...).
+                  from **registry_kwargs (tune_mode=, cache=, mesh=, ...).
+                  Under a mesh (module doc) rank 0 serves and every other
+                  rank calls `follow()`; `workers` is then 1, and a
+                  follower's registry evicts only on rank 0's command
+                  (its `max_entries` is set to None).
     """
 
     def __init__(self, *, max_width: int = 16, max_linger_s: float = 0.002,
@@ -255,8 +301,27 @@ class SolveService:
         # registry reused across benchmark sweeps): the service never
         # closes it
         self._own_registry = registry is None
+        # (mesh, axis) whose ranks serve together, this rank's index, size
+        self.mesh = registry.mesh if registry is not None \
+            else serving_mesh(registry_kwargs)
+        self.rank, self.mesh_size = 0, 1
+        self._channel = ""       # the mesh's command channel (its keys)
+        if self.mesh is not None:
+            from ..solver.distributed import agree, axis_group
+            _, self.mesh_size, self.rank = axis_group(*self.mesh)
+            self._channel = agree(uuid.uuid4().hex, *self.mesh)
         self.registry = registry if registry is not None \
             else OperatorRegistry(**registry_kwargs)
+        if self.rank != 0:
+            # a follower's entries mirror rank 0's: rank 0 alone evicts,
+            # by its own LRU order, and sends each eviction
+            self.registry.max_entries = None
+        self._commands = 0       # mesh commands sent (rank 0) or run
+        # the newest commands, (kind, pattern[:8]) in this rank's order
+        self.mesh_log: collections.deque = collections.deque(maxlen=1024)
+        self._queued = 0         # batches handed to the pool, not started
+        self._follow_errors = collections.Counter()  # kind -> failed
+        self._last_follow_error = ""
         self.tenant_cap = tenant_cap
         self.solve_kwargs = {"max_refine": 0} if solve_kwargs is None \
             else dict(solve_kwargs)
@@ -270,10 +335,13 @@ class SolveService:
         self._inflight = collections.Counter()      # tenant -> open requests
         self._tenant_lock = threading.Lock()
         self._closed = False
-        self._auto = bool(auto_dispatch)
+        # a follower runs rank 0's commands in follow(): no thread of its own
+        self._auto = bool(auto_dispatch) and self.rank == 0
+        # under a mesh ONE worker: the mesh thread, whose FIFO is the order
+        # every rank issues its collectives in
         self._pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=max(1, workers), thread_name_prefix="repro-solve") \
-            if self._auto else None
+            max_workers=1 if self.mesh is not None else max(1, workers),
+            thread_name_prefix="repro-solve") if self._auto else None
         self._dispatcher = None
         if self._auto:
             self._dispatcher = threading.Thread(
@@ -291,6 +359,10 @@ class SolveService:
         already has `tenant_cap` requests in flight."""
         if self._closed:
             raise RuntimeError("service is closed")
+        if self.rank != 0:
+            raise RuntimeError(
+                f"rank {self.rank} follows the mesh's rank 0, which alone "
+                f"takes requests: call follow() here, submit on rank 0")
         with _obs.span("serving.submit", tenant=tenant) as ssp:
             with self._tenant_lock:
                 depth = self._inflight[tenant]
@@ -301,7 +373,7 @@ class SolveService:
                                          limit=self.tenant_cap)
                 self._inflight[tenant] += 1
             try:
-                entry, bkey, created = self.registry.admit(
+                entry, bkey, created = self._admit(
                     matrix, dtype=dtype, side=side, transpose=transpose)
             except BaseException:
                 self._release(tenant)
@@ -331,8 +403,217 @@ class SolveService:
                     self._pending.append(batch)
                 self._cond.notify()
             if batch is not None and self._auto:
-                self._pool.submit(self._run_batch, batch)
+                self._dispatch(batch)
+            if created and self.mesh is not None and self._auto and \
+                    self.registry.pending_tunes():
+                # queued once the request is: the tune yields to it
+                self._pool.submit(self._tune_later)
             return fut
+
+    def _admit(self, L, **kw) -> tuple:
+        """registry.admit; under a mesh a new pattern's build runs as a
+        command on the mesh thread (the caller waits for it, as a cold
+        admission always does), and rank 0's evictions follow it."""
+        if self.mesh is None:
+            return self.registry.admit(L, **kw)
+        fps = (matrix_fingerprint(L, include_values=False),
+               value_fingerprint(L))
+        got = self.registry.admit(L, fingerprints=fps, build=False, **kw)
+        if got is not None:
+            return got              # a known pattern: no build, no command
+
+        def job():
+            got = self.registry.admit(L, fingerprints=fps, build=False,
+                                      **kw)
+            if got is not None:
+                return got          # admitted while this job waited
+            before = set(k for k, _ in self.registry.entries())
+            self._send(("admit", L, kw, fps))
+            got = self._admitted(L, kw, fps)
+            gone = before - set(k for k, _ in self.registry.entries())
+            if gone:
+                self._send(("evict", sorted(gone, key=repr)))
+            return got
+
+        return self._on_mesh_thread(job)
+
+    def _admitted(self, L, kw: dict, fps: tuple):
+        """An admit command's part on every rank: the build, agreed.  An
+        admission that failed on any rank is undone on every rank, so
+        their entries stay alike and the next request builds anew."""
+        from ..solver.distributed import settle
+        try:
+            return settle(lambda: self.registry.admit(
+                L, fingerprints=fps, **kw), "its admission", *self.mesh)
+        except Exception:
+            self.registry.evict(EntryKey(
+                pattern_fp=fps[0], dtype=np.dtype(kw["dtype"]).name,
+                side=kw["side"], transpose=bool(kw["transpose"])))
+            raise
+
+    def _on_mesh_thread(self, fn):
+        """Run `fn` on the mesh thread and wait for it (in pump mode, on the
+        calling thread)."""
+        if not self._auto:
+            return fn()
+        return self._pool.submit(fn).result()
+
+    def _send(self, cmd) -> None:
+        """Broadcast one command to the mesh's other ranks (rank 0 only;
+        nothing at one rank): its key on the store for each follower,
+        then the command itself."""
+        from ..solver.distributed import agree
+        if self.mesh_size > 1:
+            store = _store()
+            for r in range(1, self.mesh_size):
+                store.set(self._key(r), b"1")
+        self._log(cmd)
+        agree(cmd, *self.mesh)
+
+    def _key(self, rank: int) -> str:
+        """The store key that tells follower `rank` that command number
+        `self._commands` of this service is on its way."""
+        return f"repro_torch/service/{self._channel}/{rank}/{self._commands}"
+
+    def _receive(self):
+        """A follower's next command: wait for its key on the store (no
+        collective while the service idles), then join its broadcast."""
+        from ..solver.distributed import agree
+        store, key, pause = _store(), self._key(self.rank), _POLL_S[0]
+        while not store.check([key]):
+            time.sleep(pause)
+            pause = min(2 * pause, _POLL_S[1])
+        store.delete_key(key)
+        return agree(None, *self.mesh)
+
+    def _log(self, cmd) -> None:
+        self._commands += 1
+        kind, what = cmd[0], ""
+        if kind == "admit":
+            what = cmd[3][0]
+        elif kind in ("batch", "tune"):
+            what = cmd[1].pattern_fp
+        self.mesh_log.append((kind, what[:8]))
+
+    def _dispatch(self, batch) -> None:
+        with self._cond:
+            self._queued += 1
+        self._pool.submit(self._run_queued, batch)
+
+    def _run_queued(self, batch) -> None:
+        with self._cond:
+            self._queued -= 1
+        self._run_batch(batch)
+
+    def _tune_later(self) -> None:
+        """The mesh thread's background tune: while a batch is queued or a
+        request lingers it yields (re-queued behind them, after one linger
+        when nothing is queued yet), so a cold pattern's first requests
+        are served untuned and the tune runs when the thread is idle."""
+        with self._cond:
+            queued = self._queued > 0
+            lingering = self._batcher.pending() > 0
+        if (queued or lingering) and not self._closed:
+            if not queued:
+                time.sleep(self._batcher.max_linger_s)
+            self._pool.submit(self._tune_later)
+        else:
+            self._tune_pending()
+
+    def _tune_pending(self) -> int:
+        """Run every deferred tune and its hot swap as a command (mesh
+        thread, between batches); returns how many ran."""
+        ran = 0
+        for ekey in self.registry.pending_tunes():
+            self._send(("tune", ekey))
+            ran += bool(self.registry.run_tune(ekey))
+        return ran
+
+    def follow(self, on_batch=None) -> int:
+        """Serve as a follower (a rank of the mesh other than its first):
+        run rank 0's commands in rank 0's order until rank 0 closes the
+        service, then close this one.  Returns the commands run.
+        `on_batch(key, x)`, when given, receives each batch's solution on
+        this rank.  The one entry point the reference lacks: torch's
+        ranks are processes of their own, where JAX's mesh has one
+        controller.  Every follower must call it, or rank 0's first
+        command waits for it."""
+        if self.mesh is None or self.rank == 0:
+            raise RuntimeError("follow() runs on the ranks of a mesh other "
+                               "than its first, which serves")
+        while True:
+            cmd = self._receive()
+            self._log(cmd)
+            if cmd[0] == "close":
+                break
+            try:
+                self._apply(cmd, on_batch)
+            except Exception as e:  # noqa: BLE001 - every rank agreed on
+                # it, and rank 0 reports it to its callers; a follower
+                # keeps following and counts its failed commands by kind
+                # (a failed batch also in its stats)
+                self._follow_errors[cmd[0]] += 1
+                self._last_follow_error = f"{type(e).__name__}: {e}"
+        self._closed = True
+        if self._own_registry:
+            self.registry.close()
+        return self._commands
+
+    def _apply(self, cmd, on_batch=None) -> None:
+        """Run one of rank 0's commands on a follower."""
+        kind = cmd[0]
+        if kind == "admit":
+            self._admitted(*cmd[1:])
+        elif kind == "evict":
+            for ekey in cmd[1]:
+                self.registry.evict(ekey)
+        elif kind == "tune":
+            self.registry.run_tune(cmd[1])
+        elif kind == "batch":
+            x = self._follow_batch(*cmd[1:])
+            if on_batch is not None:
+                on_batch(cmd[1], x)
+        else:
+            raise ValueError(f"unknown mesh command {kind!r}")
+
+    def _follow_batch(self, key, L_new, B, width: int, reason: str):
+        t0 = self._clock()
+        batch = Batch(key=key, requests=[None] * width, reason=reason)
+        try:
+            x = self._mesh_solve(key, L_new, B)
+        except BaseException:
+            self.stats.record_batch_error(batch)
+            raise
+        self.stats.record_batch(batch, [], (self._clock() - t0) * 1e3)
+        return x
+
+    def _mesh_solve(self, key, L_new, B):
+        """A batch command's part on every rank: the entry and its re-bind
+        to the batch's values (`L_new`, when the batch carries them),
+        agreed; then the sharded solve, agreed.  After a re-bind that
+        failed on any rank every rank re-binds at its next batch, so the
+        ranks' operators stay bound alike."""
+        from ..core.resilience import ShardedCallError
+        from ..solver.distributed import settle
+
+        def bind():
+            entry = self._entry(key)
+            if L_new is not None:
+                entry.note_values(L_new, key.value_fp)
+            return entry, entry.ensure_values(key.value_fp)
+
+        try:
+            entry, op = settle(bind, "its re-bind", *self.mesh)
+        except ShardedCallError:
+            entry = self.registry.get(_entry_key(key))
+            if entry is not None:
+                with entry.lock:
+                    entry.bound_fp = ""
+            raise
+        with entry.lock, _obs.span("serving.solve", columns=B.shape[-1]
+                                   if B.ndim == 2 else 1):
+            return settle(lambda: op.solve(B, **self.solve_kwargs),
+                          "its solve", *self.mesh)
 
     def solve(self, b, matrix, **kwargs) -> np.ndarray:
         """Synchronous sugar: submit and wait."""
@@ -365,19 +646,39 @@ class SolveService:
                         continue
                     batches = self._batcher.due(now)
             for batch in batches:
-                self._pool.submit(self._run_batch, batch)
+                self._dispatch(batch)
             if self._closed:
                 return
 
     def pump(self) -> int:
         """Drain every queued request synchronously on the calling thread
-        (auto_dispatch=False mode); returns the number of batches run."""
+        (auto_dispatch=False mode); returns the number of batches run.
+        Under a mesh the deferred tunes then run, after the batches."""
         with self._cond:
             batches, self._pending = self._pending, []
             batches += self._batcher.flush_all(self._clock())
         for batch in batches:
             self._run_batch(batch)
+        if self.mesh is not None and not self._auto:
+            self._tune_pending()
         return len(batches)
+
+    def _entry(self, key):
+        entry = self.registry.get(_entry_key(key))
+        if entry is None:
+            raise RuntimeError(
+                f"no registry entry for pattern {key.pattern_fp[:8]} "
+                f"(evicted mid-flight?)")
+        return entry
+
+    def _solve_batch(self, entry, value_fp: str, B):
+        # one lock span covers re-bind + solve: a concurrent value update
+        # or hot-swap lands before or after this batch, never inside it
+        with entry.lock:
+            op = entry.ensure_values(value_fp)
+            with _obs.span("serving.solve", columns=B.shape[-1]
+                           if B.ndim == 2 else 1):
+                return op.solve(B, **self.solve_kwargs)
 
     def _run_batch(self, batch) -> None:
         t0 = self._clock()
@@ -392,13 +693,7 @@ class SolveService:
                 _obs.record_span("serving.queue", r.t_enqueue, t0,
                                  parent=bsp, tenant=r.tenant)
             try:
-                entry = self.registry.get(EntryKey(
-                    pattern_fp=key.pattern_fp, dtype=key.dtype,
-                    side=key.side, transpose=key.transpose))
-                if entry is None:
-                    raise RuntimeError(
-                        f"no registry entry for pattern "
-                        f"{key.pattern_fp[:8]} (evicted mid-flight?)")
+                entry = self._entry(key)
                 B = batch.stack()
                 if self.pad_widths and B.ndim == 2:
                     bucket = 1 << (B.shape[1] - 1).bit_length()
@@ -407,14 +702,16 @@ class SolveService:
                             [B, np.zeros((B.shape[0], bucket - B.shape[1]),
                                          dtype=B.dtype)], axis=1)
                         bsp.set(padded_width=bucket)
-                # one lock span covers re-bind + solve: a concurrent value
-                # update or hot-swap lands before or after this batch,
-                # never inside it
-                with entry.lock:
-                    op = entry.ensure_values(key.value_fp)
-                    with _obs.span("serving.solve", columns=B.shape[-1]
-                                   if B.ndim == 2 else 1):
-                        x = op.solve(B, **self.solve_kwargs)
+                if self.mesh is None:
+                    x = self._solve_batch(entry, key.value_fp, B)
+                else:
+                    # the followers mirror rank 0's entry, bound to the same
+                    # values: a re-bind's CSR travels with its batch
+                    self._send(("batch", key, None
+                                if key.value_fp == entry.bound_fp
+                                else entry._values.get(key.value_fp), B,
+                                batch.width, batch.reason))
+                    x = self._mesh_solve(key, None, B)
             except BaseException as exc:  # noqa: BLE001 - resolve futures
                 for r in batch.requests:
                     if r.future is not None and not r.future.done():
@@ -432,7 +729,17 @@ class SolveService:
 
     # -- observability --------------------------------------------------------
     def snapshot(self) -> dict:
-        return self.stats.snapshot(self.registry)
+        """The stats plane; under a mesh also `mesh`: its size, this
+        rank, its role, the commands sent or run and, on a follower, those
+        that failed (a follower's counts are its own batches)."""
+        snap = self.stats.snapshot(self.registry)
+        if self.mesh is not None:
+            snap["mesh"] = {"size": self.mesh_size, "rank": self.rank,
+                            "role": "follower" if self.rank else "front",
+                            "commands": self._commands,
+                            "failed_commands": dict(self._follow_errors),
+                            "last_error": self._last_follow_error}
+        return snap
 
     def prometheus_text(self) -> str:
         """One Prometheus text page over every live metrics plane: the
@@ -452,11 +759,17 @@ class SolveService:
         return prometheus_text(*sources)
 
     def wait_warm(self, timeout: float | None = None) -> bool:
+        if self.mesh is not None and not self._auto and self.rank == 0:
+            self._tune_pending()            # pump mode: run them here
         return self.registry.wait_warm(timeout)
 
     # -- lifecycle ------------------------------------------------------------
     def close(self, wait: bool = True) -> None:
-        """Stop intake, drain queued batches, stop workers and tuner."""
+        """Stop intake, drain queued batches, stop workers and tuner; under
+        a mesh, then stop the followers (rank 0; a follower's service
+        closes when its `follow()` returns)."""
+        if self.rank != 0:
+            return
         with self._cond:
             if self._closed:
                 return
@@ -464,9 +777,13 @@ class SolveService:
             self._cond.notify_all()
         if self._auto:
             self._dispatcher.join(timeout=5.0)
-            self._pool.shutdown(wait=wait)
+            # under a mesh the mesh thread must finish before close's own
+            # command: no two threads issue collectives at once
+            self._pool.shutdown(wait=wait or self.mesh is not None)
         else:
             self.pump()
+        if self.mesh is not None:
+            self._send(("close",))
         if self._own_registry:
             self.registry.close(wait=wait)
 

@@ -35,6 +35,24 @@ Krylov convergence test) agree across ranks by construction; those taken
 from timings do not, so they are taken on the axis' first rank and
 broadcast (`agree`).
 
+A sharded call that fails on one rank fails on every rank, and no rank
+is left waiting in a collective.  The ranks agree twice a call, each time
+with one all_gather of a small status tensor: after the input check (a
+rank that refuses its right-hand side, ranks whose column counts differ,
+or a rank that cannot allocate the call's state and collective buffers,
+all allocated here, fail the call before its first step) and after the
+last step.  A rank whose step raises, in its local work or in the
+scatter of what the step's collectives brought (a launch, an
+out-of-memory, `core.faults.fail_sharded_step`), keeps publishing each
+later step with inert lanes that write only the garbage slots, into the
+buffers it already holds, so every collective still matches.  Every rank
+then raises the same `ShardedCallError`, naming each failing rank and its
+reason; the lowering stays memoized and the next call runs as usual.  A
+world of one pays no collective for this.  `settle` gives the same
+agreement to any other step that every rank takes (the solve service's
+admissions, re-binds and tunes).  The reference has no counterpart: its
+one controller raises once.
+
 Width groups are sharded independently over their lane dimension and
 their per-step updates are concatenated before the gather, so the number
 of collectives per step stays constant however many width classes the
@@ -57,11 +75,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.resilience import ShardedCallError
 from .schedule import LevelSchedule, WidthGroup
 
 __all__ = ["solve_sharded", "lower_sharded", "count_all_gathers",
            "default_mesh", "require_axis", "mesh_device", "axis_group",
-           "agree", "all_ranks", "is_default_mesh"]
+           "agree", "all_ranks", "settle", "is_default_mesh",
+           "ShardedCallError"]
+
+# the sharded sweep's fault seam (`core.faults.fail_sharded_step`): None,
+# or a callable(step, stage) consulted on this rank before each step's
+# local work (stage "step") and before the scatter of what its
+# collectives brought (stage "publish"), which raises to fail that step
+_STEP_FAULT = None
 
 # (axis, device type) -> (the default process group it was built on, mesh):
 # a process group destroyed and made anew gets a mesh of its own
@@ -161,10 +187,43 @@ def all_ranks(value, mesh, axis: str = "model") -> list:
     a decision all ranks must take alike is made from (a cache hit, a
     lowering that failed on one rank).  A single rank gets `[value]`."""
     group, size, _ = axis_group(mesh, axis)
+    return _objects(value, group, size)
+
+
+def _objects(value, group, size: int) -> list:
     if size == 1:
         return [value]
     out = [None] * size
     dist.all_gather_object(out, value, group=group)
+    return out
+
+
+def settle(fn, where: str, mesh, axis: str = "model"):
+    """Run `fn()`, this rank's part of a step that every rank of the axis
+    takes, then agree whether it raised on any rank: one all_gather of a
+    status (none at one rank).  Returns fn's value when no rank raised;
+    else raises the same ShardedCallError on every rank, naming each rank
+    whose part raised, `where` and what.  A ShardedCallError that fn
+    raises is agreed already (every rank raised it) and is raised as it
+    is.  Every rank must reach the call, so what fn runs before its own
+    collectives must fail alike on every rank or not at all."""
+    err = None
+    try:
+        out = fn()
+    except ShardedCallError as e:
+        out, err, mine = None, e, ("agreed", "")
+    except Exception as e:  # noqa: BLE001 - agreed, then raised
+        out, err, mine = None, e, ("own", f"{where}: {type(e).__name__}: "
+                                          f"{e}")
+    else:
+        mine = None
+    seen = all_ranks(mine, mesh, axis)
+    own = [(r, why[1]) for r, why in enumerate(seen)
+           if why is not None and why[0] == "own"]
+    if own:
+        raise ShardedCallError(own) from err
+    if err is not None:
+        raise err
     return out
 
 
@@ -238,15 +297,10 @@ def _gather(v: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _step_update(x, carry, c_pad, step_groups, *, n_carry, group,
-                 gather=_gather):
-    """One schedule step on this rank's lane block, published to every rank
-    by one all_gather family (the per-step synchronization point).
-    `gather(v, group)` is injectable so `count_all_gathers` can audit the
-    family and the profiler can time the step without its collective; the
-    carry machinery leaves the collective entirely when no group of the
-    schedule ships carry maps (the common, no-split-row case).  x and
-    carry are updated in place and returned."""
+def _step_local(x, carry, c_pad, step_groups, *, n_carry):
+    """This rank's lanes of one schedule step: (values, row ids) and,
+    where any group of the schedule carries, (partial sums, carry slots),
+    each concatenated over the width groups."""
     any_carries = any(len(g) == 6 for g in step_groups)
     xis, tots, rids_l, couts_l = [], [], [], []
     for g in step_groups:
@@ -265,16 +319,27 @@ def _step_update(x, carry, c_pad, step_groups, *, n_carry, group,
             couts_l.append(g[5] if len(g) == 6 else torch.full(
                 rids.shape, n_carry + 1, dtype=rids.dtype,
                 device=rids.device))
-    # publish this step's results to every rank: one concatenated
-    # all_gather family per step — the quantity compaction minimizes.
-    # Padding lanes all write the garbage slots (x[n], carry[n_carry+1])
-    xi_all = gather(torch.cat(xis), group)
-    rid_all = gather(torch.cat(rids_l), group)
-    x[rid_all] = xi_all
+    parts = (torch.cat(xis), torch.cat(rids_l))
     if any_carries:
-        tot_all = gather(torch.cat(tots), group)
-        cout_all = gather(torch.cat(couts_l), group)
-        carry[cout_all] = tot_all
+        parts += (torch.cat(tots), torch.cat(couts_l))
+    return parts
+
+
+def _step_update(x, carry, c_pad, step_groups, *, n_carry, group,
+                 gather=_gather):
+    """One schedule step on this rank's lane block, published to every rank
+    by one all_gather family (the per-step synchronization point).
+    `gather(v, group)` is injectable so `count_all_gathers` can audit the
+    family and the profiler can time the step without its collective; the
+    carry machinery leaves the collective entirely when no group of the
+    schedule ships carry maps (the common, no-split-row case).  x and
+    carry are updated in place and returned.  Padding lanes all write the
+    garbage slots (x[n], carry[n_carry+1])."""
+    parts = _step_local(x, carry, c_pad, step_groups, n_carry=n_carry)
+    got = [gather(p, group) for p in parts]
+    x[got[1]] = got[0]
+    if len(got) == 4:
+        carry[got[3]] = got[2]
     return x, carry
 
 
@@ -284,13 +349,116 @@ def _init_state(n: int, n_carry: int, c_pad: torch.Tensor) -> tuple:
             c_pad.new_zeros((n_carry + 2,) + tail))
 
 
-def _sweep(c_pad, per_step, *, n, n_carry, group, gather=_gather):
-    """The sharded body over every step: x (n,) or (n, R)."""
+def _sweep_buffers(c_pad, per_step, *, n: int, n_carry: int,
+                   size: int) -> tuple:
+    """Every buffer of one sharded call, allocated before its first step:
+    (x, carry, the gather outputs, the inert parts).  Every step
+    publishes the same lanes (each width group has a lane block of its
+    own in every step), so each step's all_gathers land in the same
+    outputs; the inert parts are what a rank whose step failed publishes
+    in its place, every lane writing only the garbage slots (x[n],
+    carry[n_carry + 1]), so the other ranks' x stays as it was."""
     x, carry = _init_state(n, n_carry, c_pad)
-    for step_groups in per_step:
-        x, carry = _step_update(x, carry, c_pad, step_groups,
-                                n_carry=n_carry, group=group, gather=gather)
-    return x[:n]
+    groups = per_step[0] if per_step else ()
+    lanes = sum(g[0].shape[0] for g in groups)
+    tail, dev = tuple(c_pad.shape[1:]), c_pad.device
+
+    def index_dtype(leaves):
+        out = leaves[0].dtype
+        for leaf in leaves[1:]:
+            out = torch.promote_types(out, leaf.dtype)
+        return out
+
+    inert = [c_pad.new_zeros((lanes,) + tail)]
+    if groups:
+        inert.append(torch.full((lanes,), n, device=dev,
+                                dtype=index_dtype([g[0] for g in groups])))
+        if any(len(g) == 6 for g in groups):
+            inert.append(c_pad.new_zeros((lanes,) + tail))
+            inert.append(torch.full((lanes,), n_carry + 1, device=dev,
+                                    dtype=index_dtype([g[5] if len(g) == 6
+                                                       else g[0]
+                                                       for g in groups])))
+    outs = [p.new_empty((size * lanes,) + tuple(p.shape[1:]))
+            for p in inert]
+    return x, carry, outs, tuple(inert)
+
+
+def _sweep(c_pad, buffers, per_step, *, n, n_carry, group, size):
+    """The sharded body over every step: (x (n,) or (n, R), failure),
+    failure None or (step, exception).  At more than one rank a rank
+    whose step raises (its local work, or the scatter of the step's
+    gathers) publishes inert lanes for that step's remaining collectives
+    and every later step's, so the others' collectives all match; at one
+    rank it stops.  `buffers` are `_sweep_buffers`'."""
+    x, carry, outs, inert = buffers
+    failure = None
+    for s, step_groups in enumerate(per_step):
+        parts = None
+        if failure is None:
+            try:
+                if _STEP_FAULT is not None:
+                    _STEP_FAULT(s, "step")
+                parts = _step_local(x, carry, c_pad, step_groups,
+                                    n_carry=n_carry)
+            except Exception as e:  # noqa: BLE001 - agreed by the caller
+                failure = (s, e)
+                if size == 1:
+                    break
+        # publish this step's results to every rank: one concatenated
+        # all_gather family per step, into the call's own buffers
+        got = [_gather_into(out, p, group)
+               for out, p in zip(outs, inert if parts is None else parts)]
+        if failure is None:
+            try:
+                if _STEP_FAULT is not None:
+                    _STEP_FAULT(s, "publish")
+                x[got[1]] = got[0]
+                if len(got) == 4:
+                    carry[got[3]] = got[2]
+            except Exception as e:  # noqa: BLE001 - agreed by the caller
+                failure = (s, e)
+                if size == 1:
+                    break
+    return x[:n], failure
+
+
+def _gather_into(out: torch.Tensor, v: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's `v`, concatenated along dim 0 in rank order, into
+    `out` (preallocated: a step allocates nothing before its collective)."""
+    dist.all_gather_into_tensor(out, v.to(out.dtype).contiguous(),
+                                group=group)
+    return out
+
+
+def _agree_call(failure, cols, group, size: int, device) -> None:
+    """Raise the same ShardedCallError on every rank of the axis when any
+    rank's `failure` ((where, exception) or None) is set, or when the
+    ranks' column counts `cols` differ (None: not compared).  One
+    all_gather of a status tensor; the reasons travel only when a rank
+    failed.  Nothing at one rank."""
+    err = None if failure is None else failure[1]
+    mine = None if failure is None else \
+        f"{failure[0]}: {type(err).__name__}: {err}"
+    if size == 1:
+        if failure is not None:
+            raise ShardedCallError([(0, mine)]) from err
+        return
+    status = torch.tensor([failure is not None, -1 if cols is None
+                           else cols], dtype=torch.int64, device=device)
+    seen = _gather(status, group).view(size, 2).tolist()
+    if not any(f for f, _ in seen) and len({c for _, c in seen}) == 1:
+        return
+    if any(f for f, _ in seen):
+        reasons = [(r, why) for r, why in enumerate(_objects(mine, group,
+                                                             size))
+                   if why is not None]
+    else:
+        reasons = [(r, "its input check: the ranks' right-hand sides "
+                       "differ; this rank's is " +
+                       ("(n,)" if c == 0 else f"(n, {c})"))
+                   for r, (_, c) in enumerate(seen)]
+    raise ShardedCallError(reasons) from err
 
 
 def _per_step(groups: tuple, num_steps: int) -> list:
@@ -307,8 +475,10 @@ def lower_sharded(sched: LevelSchedule, mesh, axis: str = "model"):
     or batched `(n, k)` right-hand sides (a tensor on the mesh's device,
     or numpy, which is staged there; cast to the schedule dtype) and
     validates the leading dimension eagerly; every rank of the axis must
-    call it with the same c.  Prefer `ShardedEngine.compile` (or
-    `solve_sharded`), which memoizes this lowering per schedule identity.
+    call it with the same c.  What it raises on any rank (the input check,
+    a step) it raises on every rank, as one `ShardedCallError`.  Prefer
+    `ShardedEngine.compile` (or `solve_sharded`), which memoizes this
+    lowering per schedule identity.
     """
     from .levelset import pad_rhs, torch_dtype
     group, nshards, rank = axis_group(mesh, axis)
@@ -319,7 +489,7 @@ def lower_sharded(sched: LevelSchedule, mesh, axis: str = "model"):
     n, n_carry = padded.n, padded.n_carry
     dtype = torch_dtype(padded.dtype) if padded.groups else torch.float32
 
-    def run(c):
+    def checked(c):
         if not isinstance(c, torch.Tensor):
             c = torch.as_tensor(np.asarray(c), device=device)
         if c.ndim not in (1, 2) or c.shape[0] != n:
@@ -329,8 +499,25 @@ def lower_sharded(sched: LevelSchedule, mesh, axis: str = "model"):
         if c.device.type != device.type:
             raise ValueError(f"the sharded schedule lies on {device}, the "
                              f"right-hand side on {c.device}")
-        return _sweep(pad_rhs(c.to(dtype)), per_step, n=n, n_carry=n_carry,
-                      group=group)
+        return pad_rhs(c.to(dtype))
+
+    def run(c):
+        try:
+            c_pad = checked(c)
+            buffers = _sweep_buffers(c_pad, per_step, n=n, n_carry=n_carry,
+                                     size=nshards)
+            failure = None
+        except Exception as e:  # noqa: BLE001 - agreed, then raised
+            c_pad, failure = None, ("its input check", e)
+        _agree_call(failure, None if c_pad is None else
+                    (0 if c_pad.ndim == 1 else c_pad.shape[1]),
+                    group, nshards, device)
+        x, failure = _sweep(c_pad, buffers, per_step, n=n, n_carry=n_carry,
+                            group=group, size=nshards)
+        if failure is not None:
+            failure = (f"step {failure[0]}", failure[1])
+        _agree_call(failure, None, group, nshards, device)
+        return x
 
     return run
 

@@ -419,6 +419,18 @@ def _certify(payload: dict, device, where: str, *, base=None,
                 payload["preamble"][0]
             certs[which] = V.verify_packed_values(payload[which], sched,
                                                   where=where)
+    payload["packed_certificate"] = certs
+    _certify_packed(payload, where)
+
+
+def _certify_packed(payload: dict, where: str) -> None:
+    """Certify in full each packed form, main and preamble, that the
+    payload holds no certificate for (packing it where it is missing):
+    `_certify`'s last step, and what an operator built under strict
+    health whose build packed nothing (a sharded one) runs before its
+    fallback's first use of the kernel's forms (`_packed`)."""
+    from ..analysis import verify as V
+    certs = dict(payload.get("packed_certificate") or {})
     for which in ("packed", "preamble_packed"):
         if which in certs:
             continue
@@ -518,6 +530,7 @@ class TriangularOperator:
         self.device = device
         self._engine = engine
         self._build_kwargs = {}     # filled by from_csr for transposed()
+        self._strict = False        # built under strict health (from_csr)
         # staged schedules + compiled fns live on the shared payload, one
         # entry per device, so memory-cache hits share them.  "compiled"
         # maps engine name -> (engine instance, fn); the instance is kept
@@ -641,6 +654,7 @@ class TriangularOperator:
                 _certify(payload, pack_dev, where)
             op = cls(L, payload, cache_source=source, device=dev, engine=eng)
             op._build_kwargs = dict(build_kwargs, tune=tune)
+            op._strict = strict
             if dev.type == "cuda" or eng.collective_mesh() is not None:
                 # stage (on a card, pack) the forms of the sweep's
                 # schedules the engine reads now, so the build and not the
@@ -1057,7 +1071,14 @@ class TriangularOperator:
     def _packed(self, which: str):
         """The payload's packed form of the main schedule ("packed") or of
         the preamble's ("preamble_packed") on this operator's device:
-        packed on the host once, moved here once (`_payload_packed`)."""
+        packed on the host once, moved here once (`_payload_packed`).
+        Under strict health a form without a certificate is certified
+        first: a sharded build packs nothing, so its fallback to the
+        kernel packs and certifies here, before the kernel's first launch."""
+        if self._strict and self._pack_device() is None and which not in \
+                (self._payload.get("packed_certificate") or {}):
+            _certify_packed(self._payload,
+                            f"TriangularOperator(n={self.n}) fallback")
         packed = _payload_packed(self._payload, which).to(self.device)
         self._payload[which] = packed
         return packed
@@ -1230,12 +1251,14 @@ class TriangularOperator:
         payload, so a known-broken engine is not re-tried on every solve
         of a hot operator.  What the compiled callable raises when it is
         called is not: the next solve tries the engine again, so one
-        failed launch never leaves an operator that cannot serve.  Each
+        failed launch never leaves an operator that cannot serve.  A
+        sharded call that failed on some rank (`ShardedCallError`, raised
+        alike on every rank) is raised as it is, down no chain.  Each
         downgrade bumps `stats.fallbacks` and warns once per (requested,
         used) pair; an exhausted chain raises EngineFallbackError naming
         every attempt and its reason.
         """
-        from ..core.resilience import EngineFallbackError
+        from ..core.resilience import EngineFallbackError, ShardedCallError
         from .engines import engine_fallbacks
         failures = self._runtime.setdefault("engine_failures", {})
         attempts = []
@@ -1252,6 +1275,11 @@ class TriangularOperator:
                     self._compiled_fn(cand)
                     compiled = True
                     x = self._oriented_solve(v, cand, out_dtype=out_dtype)
+            except ShardedCallError:
+                # a call its mesh's ranks failed together: each rank
+                # serving it by another engine would hide what one rank
+                # refused, so it fails this solve on every rank
+                raise
             except Exception as e:  # availability, compile, or the call
                 attempts.append((cand.name, self._remember_failure(cand, e)
                                  if not compiled else

@@ -1,3 +1,3 @@
 from .csr import CSR, from_coo, identity, tril
 from .levels import LevelSets, build_levels, level_costs, row_costs
-from . import generators
+from . import generators, io

@@ -249,14 +249,20 @@ def test_sharded_solves_single_and_batched(world1):
 
 
 def test_sharded_mismatched_rhs_raises(world1):
+    """A right-hand side the call refuses raises the agreed typed error
+    (one rank here), naming the rank and the check's ValueError."""
     _, sched, _ = _small()
     fn = get_engine("sharded").compile(sched)
     n = sched.n
-    with pytest.raises(ValueError, match=rf"\({n},\) or \({n}, k\)"):
+    with pytest.raises(D.ShardedCallError,
+                       match=rf"rank 0: its input check: ValueError: .*"
+                             rf"\({n},\) or \({n}, k\)") as info:
         fn(np.zeros(n + 1, np.float32))
-    with pytest.raises(ValueError, match="right-hand side"):
+    assert isinstance(info.value.__cause__, ValueError)
+    assert info.value.rank == 0
+    with pytest.raises(D.ShardedCallError, match="right-hand side"):
         fn(np.zeros((n - 1, 2), np.float32))
-    with pytest.raises(ValueError, match="right-hand side"):
+    with pytest.raises(D.ShardedCallError, match="right-hand side"):
         fn(np.zeros((n, 2, 2), np.float32))
 
 
@@ -343,12 +349,198 @@ def test_ilu0_krylov_under_one_mesh(world1):
         assert np.linalg.norm(r) <= 1e-6 * np.linalg.norm(b.numpy())
 
 
+def _serving_batches(tracer):
+    return [{k: v for k, v in sp.attrs.items()
+             if k not in ("pattern", "solve_ms")}
+            for sp in tracer.spans() if sp.name == "serving.batch"]
+
+
 def test_solve_service_refuses_a_mesh(world1):
-    from repro_torch.serving import OperatorRegistry
+    """Named for the contract it replaced: the service now SERVES under a
+    mesh (`mesh=`, engine="sharded" by name or instance), through the
+    sharded engine, forming the single-device service's batches in pump
+    mode with answers within 1e-5 of its answers."""
+    from _torch_sharded_world import pump_requests
+    from repro_torch import obs
+    from repro_torch.serving import OperatorRegistry, SolveService
+    from repro_torch.serving.server import step_values
     for kw in ({"mesh": world1}, {"engine": "sharded"},
                {"engine": get_engine("sharded")}):
-        with pytest.raises(ValueError, match="sharded"):
-            OperatorRegistry(device="cpu", **kw)
+        reg = OperatorRegistry(**kw)
+        assert reg.mesh[0] is world1 and reg.mesh[1] == "model"
+        reg.close()
+    requests = pump_requests(generators, step_values)
+    kw = dict(max_width=4, max_linger_s=60.0, auto_dispatch=False,
+              tune_mode="off", cache=False)
+    out = {}
+    for name, extra in (("mesh", {"mesh": world1}), ("one", {"device":
+                                                             "cpu"})):
+        tr = obs.enable()
+        with SolveService(**kw, **extra) as svc:
+            futs = [svc.submit(b, M, **k) for M, b, k in requests]
+            assert svc.pump() == 5
+            xs = [f.result(timeout=0) for f in futs]
+            snap = svc.snapshot()
+            engines = {e.op.engine for _, e in svc.registry.entries()}
+        obs.disable()
+        out[name] = (xs, _serving_batches(tr), snap, engines)
+    (xs, batches, snap, engines), (xs1, batches1, snap1, _) = \
+        out["mesh"], out["one"]
+    assert engines == {"sharded"}
+    assert batches == batches1
+    for x, x1 in zip(xs, xs1, strict=True):
+        assert _rel(x, x1) <= REF_RTOL
+    assert snap["mesh"] == {"size": 1, "rank": 0, "role": "front",
+                            "commands": 8, "failed_commands": {},
+                            "last_error": ""}
+    assert "mesh" not in snap1
+    for k in ("submitted", "completed", "batches", "width_hist"):
+        assert snap[k] == snap1[k], k
+
+
+def test_mesh_service_issues_every_collective_from_one_thread(
+        world1, monkeypatch):
+    """Auto mode under a mesh, stressed: 8 submitter threads over two
+    patterns with background tunes and a shortened switch interval.
+    Every all_gather comes from the one mesh thread, every answer is
+    within 5e-5 of the float64 oracle, nothing is dropped, and each
+    pattern's tune ran once, as a command between batches."""
+    import sys
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.serving import SolveService
+    from repro_torch.serving.server import step_values
+    threads = set()
+    real = dist.all_gather_into_tensor
+
+    def gather(*args, **kwargs):
+        threads.add(threading.get_ident())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(dist, "all_gather_into_tensor", gather)
+    mats = [generators.lung2_like(0.02), generators.torso2_like(0.02)]
+    mats += [step_values(M, 1) for M in mats]
+    reqs = [(mats[i % 4], np.random.default_rng(i).standard_normal(
+        mats[i % 4].n_rows)) for i in range(40)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with SolveService(mesh=world1, max_width=4, max_linger_s=0.002,
+                          tenant_cap=None, tune_mode="background",
+                          cache=False) as svc:
+            with ThreadPoolExecutor(8) as pool:
+                futs = list(pool.map(lambda r: svc.submit(r[1], r[0]),
+                                     reqs))
+            xs = [f.result(timeout=120) for f in futs]
+            assert svc.wait_warm(timeout=120)
+            snap = svc.snapshot()
+            log = list(svc.mesh_log)
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(threads) == 1 and threading.get_ident() not in threads
+    for (M, b), x in zip(reqs, xs):
+        ref = solve_csr_seq(M, b)
+        assert np.abs(np.asarray(x, np.float64) - ref).max() <= \
+            5e-5 * max(1.0, np.abs(ref).max())
+    assert snap["completed"] == snap["submitted"] == 40
+    assert snap["registry"]["hot_swaps"] == 2
+    kinds = [k for k, _ in log]
+    assert kinds.count("tune") == 2 and kinds.count("admit") == 2
+    assert kinds.count("batch") == snap["batches"]
+
+
+def test_service_under_one_mesh_matches_the_reference(world1):
+    """A world of one: the port's service under a mesh against the
+    reference's `SolveService(mesh=default_mesh())` on the same requests:
+    the same batches, answers within 1e-5 relative to max|x|."""
+    import jax
+    from _torch_sharded_world import pump_requests
+    from repro import obs as ref_obs
+    from repro.serving import SolveService as RefService
+    from repro.serving.server import step_values as ref_step
+    from repro.solver.distributed import default_mesh as ref_mesh
+    from repro.sparse import generators as ref_gen
+    from repro_torch import obs
+    from repro_torch.serving import SolveService
+    from repro_torch.serving.server import step_values
+    kw = dict(max_width=4, max_linger_s=60.0, auto_dispatch=False,
+              tune_mode="off", cache=False)
+    tr = obs.enable()
+    with SolveService(mesh=world1, **kw) as svc:
+        futs = [svc.submit(b, M, **k)
+                for M, b, k in pump_requests(generators, step_values)]
+        svc.pump()
+        xs = [f.result(timeout=0) for f in futs]
+    obs.disable()
+    ref_tr = ref_obs.enable()
+    try:
+        with RefService(mesh=ref_mesh(devices=jax.devices()[:1]),
+                        **kw) as ref_svc:
+            futs = [ref_svc.submit(b, M, **k)
+                    for M, b, k in pump_requests(ref_gen, ref_step)]
+            ref_svc.pump()
+            ref_xs = [f.result(timeout=0) for f in futs]
+    finally:
+        ref_obs.disable()
+    assert _serving_batches(tr) == _serving_batches(ref_tr)
+    for x, x_ref in zip(xs, ref_xs, strict=True):
+        assert _rel(x, x_ref) <= REF_RTOL
+
+
+def test_one_rank_step_failure_is_raised_not_downgraded(world1):
+    """A sharded call that fails at a step raises ShardedCallError naming
+    the rank and the step, down no fallback chain; the lowering stays
+    memoized and the next call serves."""
+    L, sched, b = _small()
+    fn = get_engine("sharded").compile(sched)
+    x = fn(b).numpy()
+    with faults.fail_sharded_step(step=2):
+        with pytest.raises(D.ShardedCallError,
+                           match="rank 0: step 2: RuntimeError") as info:
+            fn(b)
+    assert info.value.failures == [(0, info.value.reason)]
+    with faults.fail_sharded_step(step=2, stage="publish"):
+        with pytest.raises(D.ShardedCallError, match=r"step 2: RuntimeError"
+                           r": .*\(publish\)"):
+            fn(b)
+    assert np.array_equal(fn(b).numpy(), x)
+    assert get_engine("sharded").compile(sched) is fn
+    assert np.array_equal(fn(b).numpy(), x)
+    op = TriangularOperator.from_csr(L, tune="no_rewriting", chunk=32,
+                                     max_deps=4, mesh=world1, cache=False)
+    with faults.fail_sharded_step(step=1):
+        with pytest.raises(D.ShardedCallError, match="step 1"):
+            op.solve(b)
+    assert op.stats.fallbacks == 0 and op.stats.last_fallback == ""
+    assert "sharded" not in op._runtime.get("engine_failures", {})
+    assert _rel(op.solve(b), solve_csr_seq(L, b)) < 1e-10
+
+
+def test_settle_agrees_what_one_rank_raised(world1):
+    """`settle` returns fn's value, turns what fn raised into a
+    ShardedCallError naming the rank and where, and raises a
+    ShardedCallError fn raised (agreed already) as it is."""
+    assert D.settle(lambda: 7, "its step", world1) == 7
+
+    def oom():
+        raise MemoryError("out of memory")
+
+    with pytest.raises(D.ShardedCallError,
+                       match="rank 0: its step: MemoryError: out of "
+                             "memory") as info:
+        D.settle(oom, "its step", world1)
+    assert isinstance(info.value.__cause__, MemoryError)
+    agreed = D.ShardedCallError([(0, "step 1: RuntimeError: x")])
+
+    def raises():
+        raise agreed
+
+    with pytest.raises(D.ShardedCallError) as info:
+        D.settle(raises, "its solve", world1)
+    assert info.value is agreed
+    with pytest.raises(ValueError, match="stage"):
+        with faults.fail_sharded_step(stage="later"):
+            pass
 
 
 # -- the collective count and the answers against the reference --------------
@@ -403,13 +595,13 @@ def test_sharded_x_matches_reference_in_one_rank(world1, kind):
         assert _rel(xj, solve_csr_seq(L, bj)) < ORACLE_RTOL
 
 
-def _run_world(world: int, out: Path) -> list:
+def _run_world(world: int, out: Path, cases: str = "solve") -> list:
     """Run one spawned world; (npz, json) per rank.  The launcher and its
     ranks share a session of their own, so a timeout kills them all."""
     out.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "_torch_sharded_world.py"),
-         str(world), str(out)], stdout=subprocess.PIPE,
+         str(world), str(out), "cpu", cases], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=ROOT, start_new_session=True)
     try:
         _, err = proc.communicate(timeout=WORLD_TIMEOUT_S)
@@ -504,6 +696,181 @@ def test_sharded_worlds(world, tmp_path):
     assert res0["lost_on_one_compile_failed"]
     assert res0["lost_on_one_warnings"] == ["EngineFallbackWarning"]
     assert _rel(arrs0["x_lost_on_one"], solve_csr_seq(L, b)) < 1e-10
+
+
+def test_sharded_service_world(tmp_path):
+    """Two gloo ranks: a call that fails on the last rank alone (its input
+    check, a step's local work, a step's scatter, through the operator)
+    raises the same ShardedCallError on both, naming that rank, and the
+    next call serves; the service under the mesh, rank 0 serving and rank
+    1 following, forms the single-device service's batches in pump mode
+    with answers within 1e-5 of its answers, every rank's answers bitwise
+    equal; a hot swap at the same point of both ranks' order; a batch
+    failed on rank 1 resolves all its futures with the agreed error and
+    the next batch is served; an admission, a re-bind and a tune that
+    fail on rank 1 alone fail alike on rank 0 and leave both ranks alike;
+    auto mode with submitter threads, a pattern arriving mid-traffic,
+    background tunes and close() while requests linger keeps one order
+    on both ranks; a service idle for twice the group's collective
+    timeout then serves; close() stops the follower (the world ends
+    within its timeout)."""
+    from _torch_sharded_world import pump_requests
+    from repro_torch import obs
+    from repro_torch.serving import SolveService
+    from repro_torch.serving.server import step_values
+    (a0, r0), (a1, r1) = _run_world(2, tmp_path / "serve", "serve")
+    for key in ("input_check", "step", "publish", "operator"):
+        assert r0[key] == r1[key], key
+        assert r0[key][0] == "ShardedCallError"
+        assert [r for r, _ in r0[key][1]] == [1], key
+    assert "its input check: ValueError" in r0["input_check"][1][0][1]
+    assert r0["step"][1][0][1].startswith("step 3: RuntimeError")
+    assert r0["publish"][1][0][1].startswith("step 3: RuntimeError")
+    assert "(publish)" in r0["publish"][1][0][1]
+    assert r0["operator"][1][0][1].startswith("step 2: RuntimeError")
+    assert r0["columns"] == r1["columns"]
+    assert [r for r, _ in r0["columns"][1]] == [0, 1]
+    assert r0["memoized"] and r0["operator_fallback"] == ""
+    L = generators.random_lower(400, avg_offdiag=2.0, seed=3, max_back=24)
+    b = np.random.default_rng(0).standard_normal(400)
+    for a in (a0, a1):
+        assert _rel(a["x_after_input"], solve_csr_seq(L, b)) < ORACLE_RTOL
+        assert np.array_equal(a["x_after_step"], a["x_after_input"])
+        assert np.array_equal(a["x_after_publish"], a["x_after_input"])
+        assert _rel(a["x_operator_after"], solve_csr_seq(L, b)) < 1e-10
+    assert np.array_equal(a0["x_operator_after"], a1["x_operator_after"])
+
+    # pump mode against the single-device service
+    requests = pump_requests(generators, step_values)
+    kw = dict(max_width=4, max_linger_s=60.0, auto_dispatch=False,
+              tune_mode="off", cache=False)
+    tr = obs.enable()
+    with SolveService(device="cpu", **kw) as svc:
+        futs = [svc.submit(b_, M, **k) for M, b_, k in requests]
+        svc.pump()
+        xs1 = [f.result(timeout=0) for f in futs]
+    obs.disable()
+    assert r0["pump_batches"] == _serving_batches(tr)
+    assert r0["pump_errors"] == [] and r1["pump_batches"] == []
+    xs = [a0[f"pump_{i}"] for i in range(len(requests))]
+    for x, x1 in zip(xs, xs1, strict=True):
+        assert _rel(x, x1) <= REF_RTOL
+    # the follower ran rank 0's commands, in rank 0's order; its batch
+    # solutions hold every answer of rank 0, bitwise
+    assert r0["pump_log"] == r1["pump_log"]
+    cols = [a1[f"pump_{j}"] for j in range(5)]
+    cols = [c[:, k] if c.ndim == 2 else c for c in cols
+            for k in range(c.shape[1] if c.ndim == 2 else 1)]
+    for x in xs:
+        assert any(np.array_equal(x, c) for c in cols)
+    assert r1["pump_snapshot"]["mesh"]["role"] == "follower"
+    assert r0["pump_snapshot"]["mesh"]["size"] == 2
+    for k in ("batches", "completed", "width_hist"):
+        assert r0["pump_snapshot"][k] == r1["pump_snapshot"][k], k
+
+    # the hot swap: one command, at the same point of both ranks' order
+    assert r0["swap_log"] == r1["swap_log"]
+    assert [k for k, _ in r0["swap_log"]] == ["admit", "batch", "tune",
+                                              "batch", "close"]
+    assert r0["swap_registry"] == r1["swap_registry"] == \
+        {"hot_swaps": 1, "admissions": 1}
+    assert r0["swap_strategies"] == r1["swap_strategies"]
+    for i in range(6):
+        x1 = a1[f"swap_{i // 3}"][:, i % 3]
+        assert np.array_equal(a0[f"swap_{i}"], x1), i
+
+    # the failed batch and the next one
+    assert r0["fail_answers"] == [False, False, False, True]
+    assert len(r0["fail_errors"]) == 3
+    for err in r0["fail_errors"]:
+        assert err[0] == "ShardedCallError"
+        assert [r for r, _ in err[1]] == [1]
+        assert err[1][0][1].startswith("step 1: RuntimeError")
+    assert r1["fail_answers"] == [True]     # the follower's served batch
+    assert r1["fail_mesh"]["failed_commands"] == {"batch": 1}
+    assert r1["fail_mesh"]["last_error"].startswith("ShardedCallError")
+    assert r0["fail_snapshot"] == r1["fail_snapshot"] == {
+        "batches": 2, "batch_errors": 1, "failed": 3, "completed": 1}
+
+    # an admission failed on rank 1: the submit raised, no entry is left
+    A = generators.lung2_like(0.02)
+    A1 = step_values(A, 1)
+    assert r0["admit_failed"][0] == "ShardedCallError"
+    assert r0["admit_failed"][1][0][0] == 1
+    assert r0["admit_failed"][1][0][1].startswith("its admission: "
+                                                  "MemoryError")
+    assert r0["entries_after_admit_failed"] == 0
+    # a re-bind failed on rank 1: both futures of its batch carry it, the
+    # next batch re-binds on both ranks and serves
+    assert r0["rebind_answers"] == [True, False, False, True]
+    assert r1["rebind_answers"] == [True, True]
+    assert len(r0["rebind_errors"]) == 2
+    for err in r0["rebind_errors"]:
+        assert err[0] == "ShardedCallError" and err[1][0][0] == 1
+        assert err[1][0][1].startswith("its re-bind: MemoryError")
+    assert r0["rebind_log"] == r1["rebind_log"]
+    assert [k for k, _ in r0["rebind_log"]] == ["admit", "admit", "batch",
+                                                "batch", "batch", "close"]
+    assert r0["rebind_snapshot"] == r1["rebind_snapshot"] == {
+        "batches": 3, "batch_errors": 1, "failed": 2, "completed": 2}
+    assert r0["rebind_entries"] == r1["rebind_entries"] == 1
+    wave_b = [np.random.default_rng(20 + i).standard_normal(A.n_rows)
+              for i in range(3)]
+    assert _rel(a0["rebind_0"], solve_csr_seq(A, wave_b[0])) < ORACLE_RTOL
+    assert _rel(a0["rebind_3"], solve_csr_seq(A1, wave_b[2])) < ORACLE_RTOL
+    assert np.array_equal(a0["rebind_0"], a1["rebind_0"])
+    assert np.array_equal(a0["rebind_3"], a1["rebind_1"])
+    # a tune failed on rank 1: degraded on both, no swap, the same answers
+    assert r0["tune_fail_log"] == r1["tune_fail_log"]
+    assert [k for k, _ in r0["tune_fail_log"]] == ["admit", "batch", "tune",
+                                                   "batch", "close"]
+    assert r0["tune_fail_registry"] == r1["tune_fail_registry"] == \
+        {"hot_swaps": 0, "tuner_failures": 1}
+    assert r0["tune_fail_states"] == r1["tune_fail_states"] == ["degraded"]
+    assert r0["tune_fail_errors"] == []
+    for i in range(6):
+        assert np.array_equal(a0[f"tune_fail_{i}"],
+                              a1[f"tune_fail_{i // 3}"][:, i % 3]), i
+
+    # auto mode: one order on both ranks, every answer on the oracle and
+    # bitwise among the follower's batch columns
+    auto = r0["auto"]
+    assert auto["log"] == r1["auto"]["log"]
+    kinds = [k for k, _ in auto["log"]]
+    assert kinds.count("admit") == 2 and kinds.count("tune") == 2
+    assert kinds[-1] == "close" and auto["warm"]
+    assert auto["snapshot"] == {"submitted": 22, "completed": 22,
+                                "failed": 0}
+    assert auto["hot_swaps"] == 2
+    B_ = generators.torso2_like(0.02)
+    mats = [A] * 12 + [A, B_] * 4 + [A, B_]
+    cols = []
+    for key in a1.files:
+        if key.startswith("auto_batch_"):
+            c = a1[key]
+            cols += [c[:, k] for k in range(c.shape[1])] if c.ndim == 2 \
+                else [c]
+    for i, M in enumerate(mats):
+        x = a0[f"auto_{i}"]
+        b_ = np.random.default_rng(60 + i).standard_normal(M.n_rows)
+        assert _rel(x, solve_csr_seq(M, b_)) < ORACLE_RTOL, i
+        assert any(np.array_equal(x, c) for c in cols), i
+
+    # idle for twice the collective timeout, then served
+    x0 = np.load(tmp_path / "serve" / "idle0.npz")["arr_0"]
+    x1 = np.load(tmp_path / "serve" / "idle1.npz")["arr_0"]
+    b_ = np.random.default_rng(40).standard_normal(A.n_rows)
+    assert _rel(x0, solve_csr_seq(A, b_)) < ORACLE_RTOL
+    assert np.array_equal(x0, x1)
+    # a registry given with max_entries=1 on both ranks: rank 0 evicts by
+    # its LRU order and sends the eviction; the follower's cap is lifted
+    assert r0["evict_log"] == r1["evict_log"]
+    assert [k for k, _ in r0["evict_log"]] == ["admit", "batch", "admit",
+                                               "evict", "batch", "close"]
+    assert r0["evict_entries"] == r1["evict_entries"] and \
+        len(r0["evict_entries"]) == 1
+    assert r0["evict_max_entries"] == 1 and r1["evict_max_entries"] is None
+    assert r0["closed"] and r1["closed"]
 
 
 # -- the profiler and the cost model ------------------------------------------
@@ -621,6 +988,70 @@ def test_lose_mesh_downgrades_sharded_to_torch_on_the_cpu(world1):
 
 # -- on a card (skip here) ----------------------------------------------------
 
+def _swapped_first_and_last_tile(packed):
+    """`packed` with its first and last tiles swapped: a step order the
+    packed-form certifier refuses."""
+    import dataclasses
+    w = packed.tiles.numpy()
+    tp = 4 * packed.tile_ptr.numpy().astype(np.int64)
+    tiles = [w[a:b].copy() for a, b in zip(tp[:-1], tp[1:])]
+    tiles[0], tiles[-1] = tiles[-1], tiles[0]
+    ptr = np.concatenate([[0], np.cumsum([t.size // 4 for t in tiles])])
+    return dataclasses.replace(
+        packed, tiles=torch.from_numpy(np.concatenate(tiles)),
+        tile_ptr=torch.from_numpy(ptr.astype(np.int32)))
+
+
+def _defective_packs(monkeypatch):
+    real = K.pack_schedule
+    monkeypatch.setattr(K, "pack_schedule",
+                        lambda s: _swapped_first_and_last_tile(real(s)))
+
+
+def test_strict_lost_mesh_certifies_the_fallback_tiles(world1, monkeypatch):
+    """Strict health on a sharded operator whose mesh is lost: the build
+    certifies the schedule and packs nothing; the kernel's packed forms,
+    main and preamble, are packed and certified at their first use,
+    before they are handed out (on a card the "sharded->cuda" fallback's
+    first K1 launch; here the forms asked for directly, since the CPU
+    fallback runs the plain body, which reads none), and a defective
+    pack raises ScheduleInvariantError there."""
+    from repro_torch.core.resilience import ScheduleInvariantError
+    L = generators.lung2_like(0.05)
+    b = np.random.default_rng(4).standard_normal(L.n_rows)
+
+    def strict_lost():
+        with faults.lose_mesh():
+            return TriangularOperator.from_csr(
+                L, "avgLevelCost", mesh=world1, cache=False,
+                health="strict")
+
+    op = strict_lost()
+    assert op.certificate is not None
+    assert "packed" not in op._payload
+    assert "packed_certificate" not in op._payload
+    assert _rel(op.solve(b), solve_csr_seq(L, b)) < 1e-10
+    assert op.stats.last_fallback == "sharded->torch"
+    assert "packed" not in op._payload          # the plain body packs none
+    packed = op._packed("packed")
+    op._packed("preamble_packed")
+    certs = op._payload["packed_certificate"]
+    assert certs["packed"].lanes == L.n_rows == packed.num_lanes
+    assert certs["preamble_packed"] is not None
+    op._packed("packed")
+    assert op._payload["packed_certificate"]["packed"] is certs["packed"]
+    _defective_packs(monkeypatch)
+    bad = strict_lost()
+    with pytest.raises(ScheduleInvariantError):
+        bad._packed("packed")
+    assert "packed_certificate" not in bad._payload
+    # without strict health nothing is certified at that use
+    lax = TriangularOperator.from_csr(L, "avgLevelCost", mesh=world1,
+                                      cache=False)
+    lax._packed("packed")
+    assert "packed_certificate" not in lax._payload
+
+
 @pytest.fixture
 def nccl_world1():
     """An NCCL world of one on the card and its mesh, destroyed after."""
@@ -662,6 +1093,40 @@ def test_cuda_sharded_operator_on_the_card(nccl_world1):
     res = cg(mv, torch.as_tensor(A.matvec(rhs), device=op.device),
              preconditioner=P, tol=1e-8)
     assert bool(res.converged)
+
+
+@pytest.mark.cuda
+def test_cuda_strict_lost_mesh_certifies_k1_tiles_before_launch(
+        nccl_world1, monkeypatch):
+    """On the card: a strict sharded operator whose mesh is lost is served
+    by K1 ("sharded->cuda") only after K1's packed tiles are certified; a
+    defective pack fails the chain with no K1 launch."""
+    from repro_torch.core.resilience import EngineFallbackError
+    L = generators.lung2_like(0.05)
+    b = np.random.default_rng(4).standard_normal(L.n_rows)
+
+    def strict_lost():
+        with faults.lose_mesh():
+            return TriangularOperator.from_csr(
+                L, "avgLevelCost", mesh=nccl_world1, cache=False,
+                health="strict")
+
+    op = strict_lost()
+    assert "packed_certificate" not in op._payload
+    before = K.LAUNCHES["sptrsv_groups"]
+    with pytest.warns(Warning):
+        x = op.solve(b)
+    assert op.stats.last_fallback == "sharded->cuda"
+    assert K.LAUNCHES["sptrsv_groups"] > before
+    assert set(op._payload["packed_certificate"]) == {"packed",
+                                                      "preamble_packed"}
+    assert _rel(x, solve_csr_seq(L, b)) < 1e-10
+    _defective_packs(monkeypatch)
+    bad = strict_lost()
+    before = dict(K.LAUNCHES)
+    with pytest.raises(EngineFallbackError, match="ScheduleInvariantError"):
+        bad.solve(b)
+    assert dict(K.LAUNCHES) == before
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@
 The same seeds give the same CSR arrays from `repro_torch.sparse.generators`
 as from `repro.sparse.generators`, and the copied transform + schedule
 compiler give transformed systems and LevelSchedules whose every array is
-equal (exactly, not within a tolerance) to the reference's.
+equal (exactly, not within a tolerance) to the reference's, and metrics
+equal to its own, the generated code's size included.
 """
 import dataclasses
 
@@ -84,8 +85,7 @@ def test_transformed_schedules_match(name, strategy, compact):
     ts = transform(MATRICES[name](gen), make_strategy(strategy),
                    validate=False)
     ts_ref = ref_transform(MATRICES[name](ref_gen),
-                           ref_make_strategy(strategy), validate=False,
-                           codegen=False)
+                           ref_make_strategy(strategy), validate=False)
     assert_csr_equal(ts.A, ts_ref.A)
     assert_csr_equal(ts.T, ts_ref.T)
     np.testing.assert_array_equal(ts.src, ts_ref.src)
@@ -119,5 +119,15 @@ def test_csr_schedules_match(name, compact):
 
 
 def test_transform_codegen_not_ported():
-    with pytest.raises(NotImplementedError, match="codegen"):
-        transform(gen.chain(8), make_strategy("no_rewriting"), codegen=True)
+    """Named for the contract it replaced: `transform` now takes the
+    reference's default `codegen=True` and fills the code-size metric with
+    the reference's bytes, exactly; codegen=False leaves it 0 in both."""
+    for codegen in (True, False):
+        kw = {} if codegen else {"codegen": False}
+        m = transform(gen.chain(8), make_strategy("no_rewriting"), **kw) \
+            .metrics
+        m_ref = ref_transform(ref_gen.chain(8),
+                              ref_make_strategy("no_rewriting"), **kw).metrics
+        assert (m.code_bytes_before, m.code_bytes_after) == \
+            (m_ref.code_bytes_before, m_ref.code_bytes_after)
+        assert (m.code_bytes_after > 0) == codegen

@@ -1,8 +1,10 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package.
+"""The port, its examples and chip_smoke.py import neither JAX nor the
+JAX package.
 
 An AST scan finds no `jax` and no `repro` import in their sources, and a
 subprocess that blocks both on `sys.meta_path` imports every module of
-`repro_torch`, which catches imports that come in indirectly.
+`repro_torch` and every `examples/torch_*.py`, which catches imports that
+come in indirectly.
 chip_smoke.py exits non-zero, printing no result, without a card and
 outside a checkout.
 """
@@ -21,7 +23,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 BLOCKED = ("jax", "jaxlib", "repro")
 
 
@@ -35,6 +38,12 @@ def _imported_modules(path: Path):
 
 def _blocked(name: str) -> bool:
     return name.split(".")[0] in BLOCKED
+
+
+def test_the_four_examples_are_scanned():
+    assert [p.name for p in EXAMPLES] == [
+        "torch_pcg_ic0.py", "torch_quickstart.py", "torch_timestepping.py",
+        "torch_transform_study.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -59,6 +68,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+import importlib.util
+for path in {[str(p) for p in EXAMPLES]!r}:
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(" ".join(names))
 print(len(names))
@@ -71,7 +84,8 @@ print(len(names))
     imported = set(proc.stdout.split()[:-1])
     for name in ("repro_torch.core.portfolio", "repro_torch.obs",
                  "repro_torch.obs.profile", "repro_torch.obs.calibrate",
-                 "repro_torch.solver.api"):
+                 "repro_torch.solver.api", "repro_torch.core.codegen",
+                 "repro_torch.sparse.io"):
         assert name in imported, name
 
 

@@ -124,7 +124,7 @@ def test_replay_transform_matches_reference(name, strategy):
     L, L_ref = _pair(name)
     ts = transform(L, make_strategy(strategy), validate=False)
     ts_ref = ref_transform(L_ref, ref_make_strategy(strategy),
-                           validate=False, codegen=False)
+                           validate=False)
     r = replay_transform(_revalued(L, seed=3), ts)
     r_ref = ref_replay(_revalued(L_ref, seed=3), ts_ref)
     _assert_ts_equal(r, r_ref)
