@@ -241,11 +241,30 @@ non-zero:
    transform_study}.py`'s `main` on the card (transform_study at scale
    0.25), each timed, with its launches; K1 and K2 must be launched, the
    plain version never.
-14. The kernels line and the contract line.
+14. The LM serving path (`repro_torch.models`, `launch/serve.py`) for
+   the decoder-only families; it runs none of K1-K4 (the JAX package's LM
+   stack has no Pallas kernel), and its launch count of each is 0.  (a)
+   Each of the seven reduced configs (internvl2-1b, gemma-7b,
+   internlm2-1.8b, llama3-8b, qwen2-7b, llama4-scout-17b-a16e,
+   granite-moe-1b-a400m) in float32, drawn on the host and moved to the
+   card: prefill's logits and cache and two decode steps within 1e-4 of
+   the same model on the host.  (b) internlm2-1.8b at its full config in
+   float32: prefill plus one decode step within 2e-3 of `forward` on the
+   prompt plus that token.  (c) Full width in bfloat16, batch 4, 32
+   generated tokens, cache 552: llama3-8b, granite-moe-1b-a400m (prompt
+   512), internvl2-1b (256 prefix positions and a 256-token prompt), and
+   llama4-scout-17b-a16e at full width but 4 of its 48 layers (the whole
+   model does not fit on one card): the parameter bytes, the peak memory,
+   prefill ms and decode ms per token (CUDA events, median of 3 after a
+   warm-up), tokens/s, their bounds, and the decode step within 5e-2 of
+   `forward`, every logit finite.  (d) `python -m repro_torch.launch.serve
+   --arch internlm2-1.8b --batch 4 --prompt-len 32 --gen 16` in a new
+   process exits 0.  The phase prints its seconds.
+15. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
-With `--sweep` or `--ab`, phases 3-13 give way to studies of the SpTRSV
+With `--sweep` or `--ab`, phases 3-14 give way to studies of the SpTRSV
 kernel on lung2's and torso2's L and IC(0) L^T (R = 1, 8) and of K4 on
 phase 3's systems, written to chiprun_out/chip_smoke_study.json
 (`--only sptrsv` or `--only spmv` keeps one of the two): `--sweep` times
@@ -3801,10 +3820,337 @@ def phase_examples() -> tuple:
     return res, counts
 
 
+# -- phase 14: the LM serving path -------------------------------------------
+
+LM_ARCHS = ("internvl2-1b", "gemma-7b", "internlm2-1.8b", "llama3-8b",
+            "qwen2-7b", "llama4-scout-17b-a16e", "granite-moe-1b-a400m")
+# the card's float32 model against the same model on the host, relative
+# to the logits' (or the cache's) scale: the two sum each product in
+# another order (and the card's matmuls tile it), ~1e-6 a layer
+LM_PARITY_RTOL = 1e-4
+# prefill + one decode step against `forward` on the prompt plus that
+# token, full width: float32 (two attention paths, ~1e-5 a layer over 24
+# layers), bfloat16 (the bf16 KV cache and activations, ~4e-3 a rounding)
+LM_F32_RTOL, LM_BF16_RTOL = 2e-3, 5e-2
+# a tied bf16 model's logits against the float32 product of its bf16
+# hidden states and table (summed in another order): a product rounded to
+# bf16 would be ~2**-9 off
+LM_TIED_RTOL = 1e-5
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
+LM_CACHE = LM_PROMPT + LM_GEN + 8
+LM_REPS = 3
+H100_BF16_FLOPS = 989e12        # dense bfloat16 tensor cores (SXM)
+# (arch, layers kept: None is the whole config; prompt tokens)
+LM_FULL = (("llama3-8b", None, LM_PROMPT),
+           ("granite-moe-1b-a400m", None, LM_PROMPT),
+           ("internvl2-1b", None, LM_PROMPT - 256),
+           # the whole model is ~216 GB in bf16: one card holds 4 of its
+           # 48 layers at full width
+           ("llama4-scout-17b-a16e", 4, LM_PROMPT))
+
+
+def lm_inputs(cfg, B: int, S: int, rng, dev) -> tuple:
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    extra = {}
+    if cfg.frontend != "none":
+        extra["prefix_embeds"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.frontend_positions, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    return tokens, extra
+
+
+def lm_parity(rng) -> dict:
+    """(a) Each reduced decoder-only config in float32, drawn once on the
+    host and moved to the card: prefill (logits and cache) and two decode
+    steps (the second past the cache's ring) on the card against the same
+    model on the host."""
+    import copy
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    res = {}
+    for arch in LM_ARCHS:
+        cfg = get_reduced(arch)
+        cpu = T.init_params(SEED, cfg, device="cpu")
+        card = copy.deepcopy(cpu).to(DEVICE)
+        tokens, extra = lm_inputs(cfg, 2, 12, rng, "cpu")
+        S_tot = 12 + (cfg.frontend_positions if extra else 0)
+        errs = []
+        lp, cache = T.prefill(cpu, tokens, cfg, S_tot + 1, **extra)
+        lpc, cachec = T.prefill(card, tokens.to(DEVICE), cfg, S_tot + 1,
+                                **{k: v.to(DEVICE) for k, v in extra.items()})
+        errs += [rel_err(lpc.cpu(), lp)[1], rel_err(cachec["k"].cpu(),
+                                                     cache["k"])[1],
+                 rel_err(cachec["v"].cpu(), cache["v"])[1]]
+        nxt = rng.integers(0, cfg.vocab, (2, 2))
+        for i in range(2):
+            tok = torch.as_tensor(nxt[:, i:i + 1])
+            ld, cache = T.decode_step(cpu, tok, cache, S_tot + i, cfg)
+            ldc, cachec = T.decode_step(card, tok.to(DEVICE), cachec,
+                                        S_tot + i, cfg)
+            errs += [rel_err(ldc.cpu(), ld)[1],
+                     rel_err(cachec["k"].cpu(), cache["k"])[1]]
+        res[arch] = max(errs)
+        log(f"  (a) {arch} reduced float32: card vs host {max(errs):.3e}")
+        check(max(errs) <= LM_PARITY_RTOL,
+              f"{arch}: the card's logits or cache are {max(errs):.3e} off "
+              f"the host's")
+    return res
+
+
+@contextlib.contextmanager
+def lm_no_drops(model, cfg):
+    """The model under `cfg` with, for a MoE, a capacity factor of E (cap
+    = Tg * k: no pick drops).  At the config's factor, `forward` over S + 1
+    tokens and prefill over S drop different picks (the capacity grows
+    with the row's length) and a decode step drops none, so the reference
+    itself gives them different outputs there.  Yields the config."""
+    if cfg.family != "moe":
+        yield cfg
+        return
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    mods = [m for m in model.modules() if getattr(m, "cfg", None) == cfg]
+    for m in mods:
+        m.cfg = wide
+    try:
+        yield wide
+    finally:
+        for m in mods:
+            m.cfg = cfg
+
+
+def lm_against_forward(model, cfg, tokens, extra) -> tuple:
+    """Prefill, then one decode step of its greedy token, against
+    `forward` on the prompt plus that token: (rel. error of the prefill's
+    last logits, of the decode step's, whether every logit is finite).
+    A MoE runs without drops (`lm_no_drops`)."""
+    with lm_no_drops(model, cfg) as wide:
+        return _lm_against_forward(model, wide, tokens, extra)
+
+
+def _lm_against_forward(model, cfg, tokens, extra) -> tuple:
+    from repro_torch.models import transformer as T
+    S_tot = tokens.shape[1] + (cfg.frontend_positions if extra else 0)
+    lp, cache = T.prefill(model, tokens, cfg, S_tot + 1, **extra)
+    nxt = lp[:, -1:].argmax(dim=-1)
+    ld, cache = T.decode_step(model, nxt, cache, S_tot, cfg)
+    del cache
+    with torch.no_grad():
+        hidden, _ = T.forward(model, torch.cat([tokens, nxt], dim=1), cfg,
+                              return_hidden=True, **extra)
+        full = model.logits(hidden[:, -2:])
+    finite = bool(torch.isfinite(lp).all() and torch.isfinite(ld).all())
+    return (rel_err(lp[:, -1], full[:, 0])[1],
+            rel_err(ld[:, -1], full[:, 1])[1], finite)
+
+
+def lm_tied_logits(model, cfg, B: int, rng) -> float:
+    """A tied model's logits of bf16 hidden states against the float32
+    product of the float32 copies of its operands (the reference's einsum
+    with preferred_element_type=float32)."""
+    h = torch.as_tensor(rng.standard_normal((B, 2, cfg.d_model)),
+                        device=DEVICE).to(model.embed.w.dtype)
+    with torch.no_grad():
+        got = model.logits(h)
+        want = h.float() @ model.embed.w.float().t()
+    return rel_err(got, want)[1]
+
+
+def lm_full_f32(rng) -> dict:
+    """(b) internlm2-1.8b at its full config in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    t0 = time.perf_counter()
+    model = T.init_params(SEED, cfg, device=DEVICE)
+    tokens, extra = lm_inputs(cfg, 2, 64, rng, DEVICE)
+    e_pre, e_dec, finite = lm_against_forward(model, cfg, tokens, extra)
+    n = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    res = {"params": n, "prefill_vs_forward": e_pre,
+           "decode_vs_forward": e_dec, "seconds": time.perf_counter() - t0}
+    log(f"  (b) internlm2-1.8b full float32 ({n:,} parameters): prefill "
+        f"{e_pre:.3e}, decode {e_dec:.3e} off forward")
+    check(finite and max(e_pre, e_dec) <= LM_F32_RTOL,
+          f"internlm2-1.8b float32: prefill+decode off forward: {res}")
+    return res
+
+
+def lm_bounds(cfg, model, B: int, S_tot: int) -> dict:
+    """The least time of a decode step (its bytes over the memory rate)
+    and of the prefill (its products' operations over the bf16 rate, or
+    its bytes, the larger).  A decode step reads every parameter but the
+    untied embedding's unread rows; the MoE's dense dispatch reads every
+    expert ("all"), the batch's picks need at most min(E, B*k) of them a
+    layer ("active").  The KV cache read is the positions written, on
+    average over the steps; the prefill's attention is causal."""
+    isz = 2
+    d, V = cfg.d_model, cfg.padded_vocab
+    hd, H, K, L = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv, cfg.n_layers
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    embed_bytes = model.embed.w.numel() * isz
+    read_all = param_bytes - (0 if cfg.tie_embeddings else embed_bytes)
+    read_active = read_all
+    if cfg.family == "moe":
+        mo = cfg.moe
+        expert = 3 * d * mo.d_ff_expert * isz
+        read_active -= L * expert * (mo.num_experts -
+                                     min(mo.num_experts, B * mo.top_k))
+    kv = 2 * L * B * K * hd * isz * (S_tot + LM_GEN / 2)
+    emb = V * d * (1 if cfg.tie_embeddings else 2)
+    block_active = cfg.active_params_count() - emb
+    flops = (2 * block_active * B * S_tot + 2 * d * V * B
+             + L * 2 * 2 * B * H * hd * S_tot * S_tot / 2)
+    prefill_ms = max(flops / H100_BF16_FLOPS,
+                     param_bytes / H100_BYTES_PER_S) * 1e3
+    return {"param_bytes": param_bytes,
+            "decode_bound_ms_all": (read_all + kv) / H100_BYTES_PER_S * 1e3,
+            "decode_bound_ms_active": (read_active + kv) / H100_BYTES_PER_S
+            * 1e3,
+            "prefill_bound_ms": prefill_ms, "prefill_flops": flops}
+
+
+def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
+    """(c) One full-width bf16 model: prefill and greedy decode timed
+    with CUDA events (median of LM_REPS after a warm-up generate), peak
+    memory, the bounds, the decode step against `forward`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = T.init_params(SEED, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B = LM_BATCH
+    tokens, extra = lm_inputs(cfg, B, prompt, rng, DEVICE)
+    S_tot = prompt + (cfg.frontend_positions if extra else 0)
+    out = generate(cfg, model, tokens, LM_GEN, LM_CACHE, extra)  # warm-up
+    check(out.shape == (B, LM_GEN), f"{arch}: generate gave {out.shape}")
+    pre, dec = [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(LM_REPS):
+        torch.cuda.synchronize()
+        ev[0].record()
+        logits, cache = T.prefill(model, tokens, cfg, LM_CACHE, **extra)
+        ev[1].record()
+        tok = logits[:, -1:].argmax(dim=-1)
+        ev[2].record()
+        for i in range(LM_GEN - 1):
+            logits, cache = T.decode_step(model, tok, cache, S_tot + i, cfg)
+            tok = logits[:, -1:].argmax(dim=-1)
+        ev[3].record()
+        torch.cuda.synchronize()
+        pre.append(ev[0].elapsed_time(ev[1]))
+        dec.append(ev[2].elapsed_time(ev[3]) / (LM_GEN - 1))
+        del cache
+    # where a step's time goes: the device's busy time (profiler) against
+    # the events' wall time, and the largest kernels
+    logits, cache = T.prefill(model, tokens, cfg, LM_CACHE, **extra)
+    tok = logits[:, -1:].argmax(dim=-1)
+    busy = {"decode": device_profile(lambda: T.decode_step(
+        model, tok, cache, S_tot, cfg), reps=3),
+        "prefill": device_profile(lambda: T.prefill(
+            model, tokens, cfg, LM_CACHE, **extra))}
+    del cache
+    e_pre, e_dec, finite = lm_against_forward(model, cfg, tokens, extra)
+    e_tied = lm_tied_logits(model, cfg, B, rng) if cfg.tie_embeddings \
+        else None
+    res = {"arch": arch, "layers": cfg.n_layers, "batch": B,
+           "prompt": prompt, "prefix": S_tot - prompt, "gen": LM_GEN,
+           "cache_len": LM_CACHE,
+           "params": sum(p.numel() for p in model.parameters()),
+           "init_s": init_s, "prefill_ms": float(np.median(pre)),
+           "prefill_ms_all": pre, "decode_ms_per_token": float(np.median(dec)),
+           "decode_ms_all": dec, "prefill_vs_forward": e_pre,
+           "decode_vs_forward": e_dec, "tied_logits_vs_float32": e_tied,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           **lm_bounds(cfg, model, B, S_tot)}
+    res["tokens_per_s"] = B / (res["decode_ms_per_token"] / 1e3)
+    for part, wall in (("decode", res["decode_ms_per_token"]),
+                       ("prefill", res["prefill_ms"])):
+        dev_ms = sum(busy[part].values())
+        res[f"{part}_device_ms"] = dev_ms
+        res[f"{part}_busy_share"] = dev_ms / wall if dev_ms else None
+        res[f"{part}_top_kernels"] = top_kernels(busy[part], 3)
+    del model
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  (c) {arch}{'' if layers is None else f' ({layers} layers)'} "
+        f"bf16, {res['params']:,} parameters ({res['param_bytes'] / 1e9:.2f}"
+        f" GB), peak {res['peak_bytes'] / 1e9:.2f} GB: prefill "
+        f"{res['prefill_ms']:.2f} ms (bound {res['prefill_bound_ms']:.2f}), "
+        f"decode {res['decode_ms_per_token']:.3f} ms/token (bound "
+        f"{res['decode_bound_ms_all']:.3f} all, "
+        f"{res['decode_bound_ms_active']:.3f} active), "
+        f"{res['tokens_per_s']:.1f} tokens/s; vs forward: prefill "
+        f"{e_pre:.3e}, decode {e_dec:.3e}; tied logits vs float32 "
+        f"{e_tied}; {res['seconds']:.1f} s")
+    for part in ("prefill", "decode"):
+        log(f"      {part}: device busy {res[f'{part}_device_ms']:.3f} ms "
+            f"a call ({res[f'{part}_busy_share']}), top "
+            f"{res[f'{part}_top_kernels']}")
+    check(finite and max(e_pre, e_dec) <= LM_BF16_RTOL,
+          f"{arch} bf16: prefill+decode off forward or not finite: {res}")
+    check(e_tied is None or e_tied <= LM_TIED_RTOL,
+          f"{arch} bf16: the tied logits are {e_tied} off the float32 "
+          f"product")
+    return res
+
+
+def lm_cli() -> dict:
+    """(d) The serving CLI in a new process on the card."""
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "internlm2-1.8b", "--batch", "4", "--prompt-len", "32", "--gen",
+            "16"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          timeout=300)
+    res = {"rc": proc.returncode, "stdout": proc.stdout[-500:],
+           "seconds": time.perf_counter() - t0}
+    log(f"  (d) {' '.join(argv[1:])}: rc {proc.returncode}, "
+        f"{res['seconds']:.1f} s; {proc.stdout.strip()}")
+    check(proc.returncode == 0 and "generated (4, 16)" in proc.stdout,
+          f"the serving CLI failed: {proc.stderr[-2000:]}")
+    return res
+
+
+def phase_lm(rng) -> tuple:
+    """The LM serving path (decoder-only families) on the card.  Returns
+    (result, launch counts of K1-K4 in this phase: all 0, since the LM
+    path runs none of them)."""
+    from repro_torch.kernels import spmv_ell as S
+    from repro_torch.kernels import sptrsv_level as K
+    K.reset_launch_counts()
+    S.reset_launch_counts()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    try:
+        res = {"parity": lm_parity(rng), "full_f32": lm_full_f32(rng)}
+        res["timed"] = [lm_timed(arch, layers, prompt, rng)
+                        for arch, layers, prompt in LM_FULL]
+        res["cli"] = lm_cli()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    counts = dict(K.LAUNCHES)
+    counts.update(S.LAUNCHES)
+    check(not any(counts.values()),
+          f"the LM path launched a SpTRSV or SpMV kernel: {counts}")
+    return res, counts
+
+
 def kernels_line(krows: list, *path_counts: dict,
                  served_err: dict | None = None) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the main paths (phases 4 to 13)."""
+    launches summed over the main paths (phases 4 to 14)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -3963,9 +4309,15 @@ def run(args, tuned_dir: str) -> int:
     examples, example_counts = phase_examples()
     examples["seconds"] = time.perf_counter() - t13
     log(f"  phase 13 took {examples['seconds']:.1f} s")
+    log("== 14. the LM serving path")
+    t14 = time.perf_counter()
+    lm, lm_counts = phase_lm(rng)
+    lm["seconds"] = time.perf_counter() - t14
+    log(f"  phase 14 took {lm['seconds']:.1f} s")
     line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts,
                         serve_counts, static_counts, resil_counts,
                         shard_counts, mserve_counts, example_counts,
+                        lm_counts,
                         served_err=serve["kernels_vs_plain_max_abs_err"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3980,7 +4332,8 @@ def run(args, tuned_dir: str) -> int:
          "resilience_launches": resil_counts, "sharded": shard,
          "sharded_launches": shard_counts, "mesh_service": mserve,
          "mesh_service_launches": mserve_counts, "examples": examples,
-         "examples_launches": example_counts, "code_size": code_size,
+         "examples_launches": example_counts, "lm": lm,
+         "lm_launches": lm_counts, "code_size": code_size,
          "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -18,7 +18,9 @@ repair and host-reference paths) or raises a typed, actionable error:
   lost mesh (`lose_mesh`: the sharded lowering fails, and a sharded
   operator falls back to K1 on a card, to the plain body on the CPU), a
   sharded step that raises on this rank (`fail_sharded_step`: every rank
-  of the mesh raises the same `ShardedCallError`).
+  of the mesh raises the same `ShardedCallError`), a measured mode's
+  sweep that raises on this rank (`fail_measurement`: under a mesh the
+  same).
 
     from repro_torch.core import faults
 
@@ -39,7 +41,8 @@ Injectors patch the port's own seams (`solver.schedule.
 schedule_for_transformed`, `solver.schedule.repack_schedule_values`,
 `core.transform.transform`, the engine registry's instances,
 `StrategyPortfolio.tune`, `obs.profile._STEP_FAULT`,
-`solver.distributed.lower_sharded`, `solver.distributed._STEP_FAULT`) —
+`solver.distributed.lower_sharded`, `solver.distributed._STEP_FAULT`,
+`solver.operator._SWEEP_FAULT`) —
 never torch or numpy — so a fault is scoped, deterministic, and cannot
 leak outside the context.  The schedule faults reach the SpTRSV kernel's
 packed tiles on a card, since the operator packs the schedule they
@@ -61,7 +64,7 @@ __all__ = [
     "wrong_schedule_values", "corrupt_values_payload", "pattern_drift",
     "corrupt_cache_entries", "fail_engine_compile", "engine_unavailable",
     "fail_tuner", "slow_tuner", "slow_step", "lose_mesh",
-    "fail_sharded_step",
+    "fail_sharded_step", "fail_measurement",
     # static defects the analysis verifier must reject
     "swap_schedule_steps", "duplicate_schedule_row", "oob_schedule_index",
     "corrupt_plan", "reorder_schedule_step", "duplicate_lane_row",
@@ -536,4 +539,27 @@ def fail_sharded_step(step: int = 0, times: int | None = 1, exc=None,
             f"rank"))
 
     with _patched(_dist, "_STEP_FAULT", fault):
+        yield
+
+
+@contextlib.contextmanager
+def fail_measurement():
+    """This rank's first composed sweep inside the context raises before
+    its first allocation, as an out-of-memory would; around a measured
+    build that is the first candidate's (the tuner's `measure_top_k`) or
+    the first pair's (the preconditioner's) warm-up.  Arm it on one rank
+    only: under a mesh that rank hands the failure to the sweep's sharded
+    call, and every rank raises the same `ShardedCallError` naming it; on
+    one device the failure raises (a measurement that fails on the card
+    is never scored as slow)."""
+    from ..solver import operator as _operator
+    left = [1]
+
+    def fault() -> None:
+        if left[0]:
+            left[0] = 0
+            raise RuntimeError("injected out-of-memory in a sweep on this "
+                               "rank")
+
+    with _patched(_operator, "_SWEEP_FAULT", fault):
         yield

@@ -463,6 +463,13 @@ def _synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _timed_sample(device, t0: float) -> float:
+    """Microseconds since `t0` once the device is idle: a measured mode's
+    sample."""
+    _synchronize(device)
+    return (time.perf_counter() - t0) * 1e6
+
+
 class StrategyPortfolio:
     """Enumerate -> transform -> compile -> score -> rank.
 
@@ -637,25 +644,38 @@ class StrategyPortfolio:
         the pooled MINIMUM (a rep can only be measured too slow).
         """
         import torch
+        from ..solver.distributed import RankParts
         from ..solver.levelset import resolve_device, torch_dtype
         from ..solver.operator import candidate_sweep_fn
         dev = resolve_device(self.device)
-        fn = candidate_sweep_fn(cand.ts, cand.sched, self.engine, dev)
-        b = torch.as_tensor(
+        where = f"measuring candidate {cand.label}"
+        # under a mesh a rank whose own part fails (an out-of-memory, a
+        # sync) keeps issuing every collective the others issue until the
+        # ranks agree on the failure: each part, the sweep included, runs
+        # on every rank whatever failed before it (the sweep agrees a
+        # failure before its sharded call inside that call)
+        own = RankParts(self.engine.collective_mesh())
+        fn = own.run(candidate_sweep_fn, cand.ts, cand.sched, self.engine,
+                     dev)
+        b = own.run(lambda: torch.as_tensor(
             np.random.default_rng(0).standard_normal(cand.ts.A.n_rows),
-            dtype=torch_dtype(cand.sched.dtype), device=dev)
-        fn(b)                                   # warm-up outside the timer
-        _synchronize(dev)
+            dtype=torch_dtype(cand.sched.dtype), device=dev))
+        own.agree(where)
+        own.run(fn, b)                          # warm-up outside the timer
+        own.run(_synchronize, dev)
 
         def sample_until(deadline: float) -> list:
             out = []
             for _ in range(self.measure_iters):
                 t0 = time.perf_counter()
-                fn(b)
-                _synchronize(dev)
-                out.append((time.perf_counter() - t0) * 1e6)
-                if self.engine.agree(time.perf_counter() >= deadline):
+                own.run(fn, b)
+                out.append(own.run(_timed_sample, dev, t0))
+                # a rank that failed votes to stop (only the first rank's
+                # vote counts)
+                if self.engine.agree(own.failed or
+                                     time.perf_counter() >= deadline):
                     break
+            own.agree(where)
             return out
 
         deadline = time.perf_counter() + self.measure_timeout_s

@@ -1,0 +1,201 @@
+"""Decoder-only transformer assembly (dense + MoE families, VLM prefix).
+
+Port of `repro.models.transformer`'s serving half: `init_params` returns a
+`Transformer` module (embedding, a `ModuleList` of blocks, the final norm,
+the unembedding unless tied), and `forward`, `init_cache`, `prefill` and
+`decode_step` keep the reference's signatures with that module in place
+of the params pytree.  The reference stacks its blocks for `lax.scan`;
+here they are a list, run one after the other (`models.convert` unstacks
+the reference's).  The KV cache keeps the reference's layout, `{"k", "v"}`
+of shape (n_layers, B, cache_len, n_kv, hd), in ring order (position p at
+slot p % cache_len); `decode_step` writes the new token's K/V into it in
+place.  Logits span `padded_vocab`, in float32 (tied: through the
+embedding table).  The training loss comes with the training slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .attention import Attention
+from .common import DTYPES, Dense, Embedding, RMSNorm
+from .mlp import GatedMLP, MoE
+
+__all__ = ["Block", "Transformer", "init_params", "forward", "init_cache",
+           "prefill", "decode_step"]
+
+
+def _float32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T accumulated and returned in float32: on a card one product
+    with a float32 output, on the host the product of the float32 copies
+    (which hold the operands exactly)."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w.t())
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float().t())
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, *, device, dtype, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.ln1 = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw)
+        self.attn = Attention(cfg, generator=generator, **kw)
+        self.ln2 = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, generator=generator, **kw)
+        else:
+            self.mlp = GatedMLP(cfg.d_model, cfg.d_ff, generator=generator,
+                                **kw)
+
+    def ffn(self, x):
+        """(mlp or moe output, aux loss)."""
+        if self.cfg.family == "moe":
+            return self.moe(x, self.cfg.act)
+        return self.mlp(x, self.cfg.act), x.new_zeros((), dtype=torch.float32)
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg, *, device, generator=None):
+        super().__init__()
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"the transformer serves the dense and moe "
+                             f"families, not {cfg.family!r}")
+        dtype = DTYPES[cfg.param_dtype]
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.embed = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
+        self.blocks = nn.ModuleList(Block(cfg, **kw)
+                                    for _ in range(cfg.n_layers))
+        self.ln_f = RMSNorm(cfg.d_model, eps=cfg.norm_eps, device=device,
+                            dtype=dtype)
+        self.unembed = None if cfg.tie_embeddings else \
+            Dense(cfg.d_model, cfg.padded_vocab, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.w.device
+
+    def embed_inputs(self, tokens, prefix_embeds=None):
+        """Token embeddings in the activation dtype, with the modality
+        prefix (B, P, d) prepended."""
+        adt = DTYPES[self.cfg.activation_dtype]
+        x = self.embed(_on(tokens, self.device).long()).to(adt)
+        if prefix_embeds is not None:
+            x = torch.cat([_on(prefix_embeds, self.device).to(adt), x], dim=1)
+        return x
+
+    def logits(self, x):
+        """Float32 logits over `padded_vocab` of hidden states x.  Tied
+        logits are the float32 product of x and the embedding table, as
+        the reference's einsum with preferred_element_type=float32: in
+        bfloat16 they are not rounded to bfloat16."""
+        if self.unembed is None:
+            return _float32_product(x, self.embed.w.to(x.dtype))
+        return self.unembed(x).float()
+
+    def forward(self, tokens, prefix_embeds=None, kv_chunk: int = 512,
+                return_hidden: bool = False):
+        cfg = self.cfg
+        x = self.embed_inputs(tokens, prefix_embeds)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux_total = x.new_zeros((), dtype=torch.float32)
+        for bp in self.blocks:
+            x = x + bp.attn(bp.ln1(x), positions, kv_chunk=kv_chunk)
+            m, a = bp.ffn(bp.ln2(x))
+            x, aux_total = x + m, aux_total + a
+        x = self.ln_f(x)
+        if return_hidden:
+            return x, aux_total
+        return self.logits(x), aux_total
+
+
+def init_params(seed, cfg, *, device=None) -> Transformer:
+    """The reference's `init_params(key, cfg)`: `seed` is an int or a
+    `torch.Generator` on `device`.  Parameters are drawn on `device` (the
+    card unless device="cpu"; "meta" allocates nothing), so a full-width
+    model is never staged through host memory."""
+    dev = resolve_device(device)
+    gen = seed
+    if not isinstance(seed, torch.Generator) and dev.type != "meta":
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return Transformer(cfg, device=dev,
+                       generator=None if dev.type == "meta" else gen)
+
+
+def forward(params: Transformer, tokens, cfg, prefix_embeds=None,
+            kv_chunk: int = 512, return_hidden: bool = False):
+    """tokens (B, S) -> (logits (B, S_total, padded_vocab), aux)."""
+    _check(params, cfg)
+    return params(tokens, prefix_embeds, kv_chunk, return_hidden)
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype, device=None) -> dict:
+    hd = cfg.resolved_head_dim
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv, hd)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+@torch.no_grad()
+def prefill(params: Transformer, tokens, cfg, cache_len: int,
+            prefix_embeds=None, kv_chunk: int = 512):
+    """Run the prompt; (last logits (B, 1, V), cache).  Each layer's K/V go
+    to ring slots (position p -> p % cache_len; the last cache_len
+    positions are kept)."""
+    _check(params, cfg)
+    x = params.embed_inputs(tokens, prefix_embeds)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None, :]
+    cache = init_cache(cfg, B, cache_len, x.dtype, device=x.device)
+    take = min(cache_len, S)
+    slots = torch.remainder(torch.arange(S - take, S, device=x.device),
+                            cache_len)
+    for i, bp in enumerate(params.blocks):
+        h, (k, v) = bp.attn(bp.ln1(x), positions, kv_chunk=kv_chunk,
+                            with_cache=True)
+        x = x + h
+        m, _ = bp.ffn(bp.ln2(x))
+        x = x + m
+        cache["k"][i][:, slots] = k[:, S - take:]
+        cache["v"][i][:, slots] = v[:, S - take:]
+    x = params.ln_f(x)
+    return params.logits(x[:, -1:]), cache
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, token, cache: dict, pos: int, cfg):
+    """One decode step.  token (B, 1); pos: the absolute position (an int);
+    returns (logits (B, 1, V), cache), the cache written in place."""
+    _check(params, cfg)
+    pos = int(pos)
+    x = params.embed_inputs(token)
+    for i, bp in enumerate(params.blocks):
+        h, _, _ = bp.attn.decode(bp.ln1(x), cache["k"][i], cache["v"][i],
+                                 pos)
+        x = x + h
+        m, _ = bp.ffn(bp.ln2(x))
+        x = x + m
+    return params.logits(params.ln_f(x)), cache
+
+
+def _on(a, device) -> torch.Tensor:
+    """A tensor, or a numpy array (copied: it may be read-only), on
+    `device`."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a))
+    return a.to(device)
+
+
+def _check(params, cfg) -> None:
+    if params.cfg != cfg:
+        raise ValueError(f"the model was built for {params.cfg.name!r}, "
+                         f"not {cfg.name!r}")

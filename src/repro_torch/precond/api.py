@@ -219,6 +219,8 @@ class Preconditioner:
         synchronize, minimum over reps, warm-up outside the timer);
         updates pair.combined in place and returns the winner.  The
         no_rewriting baseline is always measured."""
+        from ..core import portfolio as _portfolio
+        from ..solver.distributed import RankParts
         from ..solver.levelset import torch_dtype
         labels = [c["label"] for c in pair.combined[:top_k]]
         if "no_rewriting" not in labels and any(
@@ -229,28 +231,40 @@ class Preconditioner:
         by_label_b = {c.label: c for c in pair.bwd.candidates
                       if c.error is None}
         n = pair.fwd.matrix["n"]
-        r = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
-                            dtype=torch_dtype(dtype), device=device)
+        # under a mesh a rank whose own part fails (an out-of-memory, a
+        # sync) keeps issuing the collectives of every label (the
+        # lowerings, the sharded sweeps: each sweep runs on every rank,
+        # on what the failed part left), then the ranks agree on the
+        # failure: the same ShardedCallError on every rank
+        own = RankParts(engine.collective_mesh())
 
-        def sync():
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+        def agreed(what, fn_, *args):
+            out = own.run(fn_, *args)
+            own.agree(f"measuring the pair: {what}")
+            return out
 
+        r = agreed("its right-hand side", lambda: torch.as_tensor(
+            np.random.default_rng(0).standard_normal(n),
+            dtype=torch_dtype(dtype), device=device))
         measured = {}
         for label in labels:
             cf, cb = by_label_f[label], by_label_b[label]
-            f = candidate_sweep_fn(cf.ts, cf.sched, engine, device)
-            g = candidate_sweep_fn(cb.ts, cb.sched, engine, device,
-                                   bwd_reversed)
-            g(f(r))                             # warm-up outside the timer
-            sync()
+            f = agreed(label, candidate_sweep_fn, cf.ts, cf.sched, engine,
+                       device)
+            g = agreed(label, candidate_sweep_fn, cb.ts, cb.sched, engine,
+                       device, bwd_reversed)
+            own.run(g, own.run(f, r))           # warm-up outside the timer
+            own.run(_portfolio._synchronize, device)
             best = float("inf")
             for _ in range(reps):
                 t0 = time.perf_counter()
-                g(f(r))
-                sync()
-                best = min(best, time.perf_counter() - t0)
-            measured[label] = best * 1e6
+                own.run(g, own.run(f, r))
+                us = own.run(_portfolio._timed_sample, device, t0)
+                if us is not None:
+                    best = min(best, us)
+            # before the next label's lowerings, which every rank joins
+            own.agree(f"measuring the pair: {label}'s timings")
+            measured[label] = best
         # every rank of a mesh takes its first rank's timings, so that all
         # of them build the same pair
         measured = engine.agree(measured)

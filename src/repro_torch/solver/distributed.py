@@ -80,7 +80,7 @@ from .schedule import LevelSchedule, WidthGroup
 
 __all__ = ["solve_sharded", "lower_sharded", "count_all_gathers",
            "default_mesh", "require_axis", "mesh_device", "axis_group",
-           "agree", "all_ranks", "settle", "is_default_mesh",
+           "agree", "all_ranks", "settle", "RankParts", "is_default_mesh",
            "ShardedCallError"]
 
 # the sharded sweep's fault seam (`core.faults.fail_sharded_step`): None,
@@ -200,31 +200,68 @@ def _objects(value, group, size: int) -> list:
 
 def settle(fn, where: str, mesh, axis: str = "model"):
     """Run `fn()`, this rank's part of a step that every rank of the axis
-    takes, then agree whether it raised on any rank: one all_gather of a
-    status (none at one rank).  Returns fn's value when no rank raised;
-    else raises the same ShardedCallError on every rank, naming each rank
-    whose part raised, `where` and what.  A ShardedCallError that fn
-    raises is agreed already (every rank raised it) and is raised as it
-    is.  Every rank must reach the call, so what fn runs before its own
-    collectives must fail alike on every rank or not at all."""
-    err = None
-    try:
-        out = fn()
-    except ShardedCallError as e:
-        out, err, mine = None, e, ("agreed", "")
-    except Exception as e:  # noqa: BLE001 - agreed, then raised
-        out, err, mine = None, e, ("own", f"{where}: {type(e).__name__}: "
-                                          f"{e}")
-    else:
-        mine = None
-    seen = all_ranks(mine, mesh, axis)
-    own = [(r, why[1]) for r, why in enumerate(seen)
-           if why is not None and why[0] == "own"]
-    if own:
-        raise ShardedCallError(own) from err
-    if err is not None:
-        raise err
+    takes, then agree whether it raised on any rank (`RankParts`).
+    Returns fn's value when no rank raised.  Every rank must reach the
+    call, so what fn runs before its own collectives must fail alike on
+    every rank or not at all."""
+    own = RankParts((mesh, axis))
+    out = own.run(fn)
+    own.agree(where)
     return out
+
+
+class RankParts:
+    """This rank's parts of a step that every rank of a mesh takes, and
+    the one agreement on whether any of them failed on any rank.
+
+    `collective` is (mesh, axis), or None on a single device (an engine's
+    `collective_mesh()`).  `run(fn, *args)` runs a part.  Under a mesh it
+    records the first exception a part raised and returns None; a part
+    after a failure still runs, on what the failed part left (None),
+    because a part may issue collectives that every rank must keep
+    issuing (a sharded sweep handed None agrees that as its input's
+    failure).  `agree(where)` then makes one all_gather of a status (none
+    at one rank) and, when some rank's part raised, raises the same
+    ShardedCallError on every rank, naming each such rank, `where` and
+    what.  A ShardedCallError is agreed already (every rank raised it)
+    and is raised as it is.  On a single device a part's failure raises
+    at once and `agree` does nothing."""
+
+    def __init__(self, collective):
+        self.collective = collective
+        self.error = None
+
+    def run(self, fn, *args):
+        if self.collective is None:
+            return fn(*args)
+        try:
+            return fn(*args)
+        except Exception as e:  # noqa: BLE001 - agreed by agree()
+            if self.error is None:
+                self.error = e
+            return None
+
+    @property
+    def failed(self) -> bool:
+        return self.error is not None
+
+    def agree(self, where: str) -> None:
+        if self.collective is None:
+            return
+        err = self.error
+        if isinstance(err, ShardedCallError):
+            mine = ("agreed", "")
+        elif err is not None:
+            mine = ("own", f"{where}: {type(err).__name__}: {err}")
+        else:
+            mine = None
+        seen = all_ranks(mine, *self.collective)
+        own = [(r, why[1]) for r, why in enumerate(seen)
+               if why is not None and why[0] == "own"]
+        if own:
+            raise ShardedCallError(own) from err
+        if err is not None:
+            raise err
 
 
 def _pad_group(g: WidthGroup, mult: int, n: int, n_carry: int) -> WidthGroup:
@@ -476,7 +513,9 @@ def lower_sharded(sched: LevelSchedule, mesh, axis: str = "model"):
     or numpy, which is staged there; cast to the schedule dtype) and
     validates the leading dimension eagerly; every rank of the axis must
     call it with the same c.  What it raises on any rank (the input check,
-    a step) it raises on every rank, as one `ShardedCallError`.  Prefer
+    a step) it raises on every rank, as one `ShardedCallError`; a rank
+    whose own part before the call failed passes that exception as c, and
+    the call agrees it in the same way.  Prefer
     `ShardedEngine.compile` (or `solve_sharded`), which memoizes this
     lowering per schedule identity.
     """
@@ -502,13 +541,18 @@ def lower_sharded(sched: LevelSchedule, mesh, axis: str = "model"):
         return pad_rhs(c.to(dtype))
 
     def run(c):
-        try:
-            c_pad = checked(c)
-            buffers = _sweep_buffers(c_pad, per_step, n=n, n_carry=n_carry,
-                                     size=nshards)
-            failure = None
-        except Exception as e:  # noqa: BLE001 - agreed, then raised
-            c_pad, failure = None, ("its input check", e)
+        if isinstance(c, BaseException):
+            # this rank's part before the call failed, and its caller
+            # hands the exception on (`operator.compose_sweep_fn`)
+            c_pad, buffers, failure = None, None, ("before the call", c)
+        else:
+            try:
+                c_pad = checked(c)
+                buffers = _sweep_buffers(c_pad, per_step, n=n,
+                                         n_carry=n_carry, size=nshards)
+                failure = None
+            except Exception as e:  # noqa: BLE001 - agreed, then raised
+                c_pad, failure = None, ("its input check", e)
         _agree_call(failure, None if c_pad is None else
                     (0 if c_pad.ndim == 1 else c_pad.shape[1]),
                     group, nshards, device)

@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .schedule import LevelSchedule, SchedValuePlan, WidthGroup
 
 __all__ = ["DeviceSchedule", "to_device", "solve_levels", "pad_rhs",
@@ -34,23 +35,6 @@ __all__ = ["DeviceSchedule", "to_device", "solve_levels", "pad_rhs",
 # groups holding partial-row lanes.
 GROUP_LEAVES = ("row_ids", "dep_idx", "dep_coef", "dinv")
 CARRY_LEAVES = ("carry_in", "carry_out")
-
-
-def resolve_device(device=None) -> torch.device:
-    """The port's device rule: `None` means the CUDA card, and without one
-    that is an error — the port never carries on on the CPU unless the
-    caller asked for it (`device="cpu"`)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "port's plain PyTorch path on the host")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    return dev
 
 
 def torch_dtype(dtype) -> torch.dtype:

@@ -151,26 +151,54 @@ def orient_lower(A: CSR, side: str, transpose: bool) -> tuple:
     return reverse_both(A), True    # upper, no transpose
 
 
+# the composed sweep's fault seam (`core.faults.fail_measurement`): None,
+# or a callable consulted on this rank at the start of every composed
+# sweep, before its first allocation, which raises to fail it
+_SWEEP_FAULT = None
+
+
 def compose_sweep_fn(main_fn, schedule_dtype: torch.dtype, pre_fn, src,
-                     row_pos, reversed_: bool):
+                     row_pos, reversed_: bool, sharded: bool = False):
     """Compose one triangular sweep as a tensor -> tensor callable: axis
     reversal (transpose/upper orientations) -> T-factor preamble -> main
     schedule -> un-reverse, in the schedule dtype, cast back to the
     input's dtype.  `pre_fn`/`src`/`row_pos` are None for identity
     preambles; `src`/`row_pos` are index tensors on the schedule's device.
+
+    `sharded`: `main_fn` and `pre_fn` are sharded calls that every rank of
+    a mesh makes together.  A rank whose own part before one of them fails
+    (an out-of-memory, an input of None) hands the exception to that call
+    in place of its input, and the call raises the same ShardedCallError
+    on every rank.  A failure after the last sharded call raises on its
+    rank alone, for the caller to agree (`distributed.RankParts`).
     """
 
-    def fn(v: torch.Tensor) -> torch.Tensor:
-        out_dtype = v.dtype
+    def head(v):
+        if _SWEEP_FAULT is not None:
+            _SWEEP_FAULT()
         c = v.to(schedule_dtype)
         if reversed_:
             c = torch.flip(c, (0,))
+        return c if pre_fn is None else c[src]
+
+    def part(f, arg):
+        if isinstance(arg, BaseException):
+            return arg
+        if not sharded:
+            return f(arg)
+        try:
+            return f(arg)
+        except Exception as e:  # noqa: BLE001 - agreed by the next call
+            return e
+
+    def fn(v: torch.Tensor) -> torch.Tensor:
+        c = part(head, v)
         if pre_fn is not None:
-            c = pre_fn(c[src])[row_pos]
+            c = part(lambda y: y[row_pos], pre_fn(c))
         x = main_fn(c)
         if reversed_:
             x = torch.flip(x, (0,))
-        return x.to(out_dtype)
+        return x.to(v.dtype)
 
     return fn
 
@@ -183,16 +211,25 @@ def candidate_sweep_fn(ts, sched, engine, device, reversed_: bool = False):
     modes time."""
     from .levelset import to_device, torch_dtype
     from .schedule import schedule_for_preamble
-    main_fn = engine.compile(to_device(sched, device))
+
+    def staged(s):
+        # a sharded engine lowers (and stages its lane block of) the host
+        # schedule, so that nothing on the device precedes the lowering's
+        # agreement on one rank alone
+        return s if engine.collective_mesh() is not None \
+            else to_device(s, device)
+
+    main_fn = engine.compile(staged(sched))
     psched, src, row_pos = schedule_for_preamble(
         ts, chunk=sched.chunk, max_deps=sched.max_deps, dtype=sched.dtype)
     pre_fn = None
     if psched is not None:
-        pre_fn = engine.compile(to_device(psched, device))
+        pre_fn = engine.compile(staged(psched))
         src = torch.as_tensor(src, device=device)
         row_pos = torch.as_tensor(row_pos, device=device)
     return compose_sweep_fn(main_fn, torch_dtype(sched.dtype), pre_fn, src,
-                            row_pos, reversed_)
+                            row_pos, reversed_,
+                            engine.collective_mesh() is not None)
 
 
 def default_cache_dir() -> Path:
@@ -458,16 +495,40 @@ def _schedule_digest(payload: dict) -> tuple:
                    g.carry_in is not None) for g in sched.groups))
 
 
-def _agreed_hit(engine, payload):
-    """`payload` when every rank of `engine`'s mesh holds a cache hit of
-    the same schedule, else None, so that the ranks serve one hit together
-    or all build (or derive) together, never one of each: a rank building
-    alone would tune, and its measured mode's broadcast would wait for
-    ranks that never join it.  On one device, `payload` itself."""
-    mine = None if payload is None else _schedule_digest(payload)
-    hits = engine.all_ranks(mine)
-    return payload if mine is not None and all(h == mine for h in hits) \
-        else None
+def _agreed_lookup(engine, lookup, where: str):
+    """`lookup()`'s (payload, source) when every rank of `engine`'s mesh
+    holds a cache hit of the same schedule, else (None, None), so that the
+    ranks serve one hit together or all build (or derive) together, never
+    one of each: a rank building alone would tune, and its measured mode's
+    broadcast would wait for ranks that never join it.  One gather of
+    each rank's outcome: a hit's schedule digest, a miss, or what the
+    lookup raised.  A digest that raises on a rank counts as its miss (the
+    ranks then build together); a lookup that raises on any rank (a
+    strict certification of a derived payload) raises the same
+    ShardedCallError on every rank.  On one device, `lookup()` itself."""
+    if engine.collective_mesh() is None:
+        return lookup()
+    payload, source, err = None, None, None
+    try:
+        payload, source = lookup()
+    except Exception as e:  # noqa: BLE001 - agreed, then raised
+        mine, err = ("raised", f"{where}: the cache lookup: "
+                     f"{type(e).__name__}: {e}"), e
+    else:
+        try:
+            mine = None if payload is None else \
+                ("hit", _schedule_digest(payload))
+        except Exception:  # noqa: BLE001 - an unreadable hit is a miss
+            mine = None
+    seen = engine.all_ranks(mine)
+    raised = [(r, m[1]) for r, m in enumerate(seen)
+              if m is not None and m[0] == "raised"]
+    if raised:
+        from ..core.resilience import ShardedCallError
+        raise ShardedCallError(raised) from err
+    if mine is not None and all(m == mine for m in seen):
+        return payload, source
+    return None, None
 
 
 class TriangularOperator:
@@ -674,8 +735,9 @@ class TriangularOperator:
                        strategy=payload["strategy"])
             return op
 
-        payload, source = None, None
-        if cache:
+        def lookup():
+            if not cache:
+                return None, None
             payload, source = cls._memory_get(key), "memory"
             if payload is None:
                 payload, source = cls._disk_load(key, cache_dir), "disk"
@@ -690,7 +752,9 @@ class TriangularOperator:
                     # certified before its packed forms are refreshed
                     payload, source = cls._try_derive_payload(
                         base, L, certify=strict, where=where), "pattern"
-        payload = _agreed_hit(eng, payload)
+            return payload, source
+
+        payload, source = _agreed_lookup(eng, lookup, where)
         if payload is not None:
             if source == "pattern" and strict:
                 _certify(payload, pack_dev, where)     # the packed forms
@@ -887,10 +951,14 @@ class TriangularOperator:
                    f"{value_fingerprint(new_L)}")
             payload, source, repacked = None, "pattern", {}
             if cache:
-                payload, source = self._memory_get(key), "memory"
-                if payload is None:
-                    payload, source = self._disk_load(key, cache_dir), "disk"
-                payload = _agreed_hit(self._engine, payload)
+                def lookup():
+                    payload, source = self._memory_get(key), "memory"
+                    if payload is None:
+                        payload, source = self._disk_load(key, cache_dir), \
+                            "disk"
+                    return payload, source
+
+                payload, source = _agreed_lookup(self._engine, lookup, where)
                 if payload is None:
                     source = "pattern"
                 elif source == "disk":
@@ -1173,7 +1241,8 @@ class TriangularOperator:
                 pre_fn = eng.compile(eng.operator_form(self, "preamble"))
                 self._runtime["pre_compiled"][eng.name] = (eng, pre_fn)
         return compose_sweep_fn(main_fn, self._schedule_dtype(), pre_fn,
-                                src, row_pos, self._reversed)
+                                src, row_pos, self._reversed,
+                                eng.collective_mesh() is not None)
 
     def _oriented_solve(self, v: np.ndarray, engine,
                         out_dtype=None) -> np.ndarray:

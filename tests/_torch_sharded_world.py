@@ -22,8 +22,14 @@ single-device batches, a hot swap, a batch failed on the last rank, an
 admission, a re-bind and a tune that fail on the last rank alone, auto
 mode with submitter threads and background tunes, close); then, in a
 process group of its own with a collective timeout of IDLE_TIMEOUT_S, a
-service that sits idle for twice that long and then serves.  Imports
-torch and the port only.
+service that sits idle for twice that long and then serves.  CASES
+"build" runs, in a process group with a collective timeout of
+BUILD_TIMEOUT_S (so that ranks left in different collectives fail
+instead of hanging), one-rank failures inside a build: a measured tune
+whose candidate's sweep fails before its first allocation on the last
+rank alone (`faults.fail_measurement`), the same in the
+preconditioner's measured pair mode, and a cache hit whose schedule digest fails on the last rank
+alone; each followed by a solve.  Imports torch and the port only.
 """
 import contextlib
 import datetime
@@ -43,6 +49,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # the collective timeout of the "serve" world's second process group, and
 # how long its service idles (twice as long) before it serves
 IDLE_TIMEOUT_S = 5.0
+# the collective timeout of the "build" world (longer than the idle one:
+# its ranks tune, so their host work between collectives takes longer)
+BUILD_TIMEOUT_S = 30.0
 
 
 def rigged_sweeps(rank: int):
@@ -72,10 +81,12 @@ def worker(rank: int, world: int, out: str, device: str,
            cases: str = "solve") -> None:
     torch.set_num_threads(1)
     os.environ["REPRO_TORCH_CACHE_DIR"] = str(Path(out) / "cache")
+    timeout = {} if cases != "build" else {
+        "timeout": datetime.timedelta(seconds=BUILD_TIMEOUT_S)}
     dist.init_process_group("gloo", init_method=f"file://{out}/store",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, **timeout)
     try:
-        (serve if cases == "serve" else run)(rank, out, device)
+        {"serve": serve, "build": build}.get(cases, run)(rank, out, device)
     finally:
         dist.destroy_process_group()
     if cases == "serve":
@@ -106,6 +117,70 @@ def once(obj, name: str, exc: Exception, after: bool = False):
         return out
 
     setattr(obj, name, patched)
+
+
+def failed(call):
+    """What `call()` raised: (type, [(rank, reason), ...]) for a
+    ShardedCallError, (type, message) for another, None if nothing."""
+    from repro_torch.core.resilience import ShardedCallError
+    try:
+        call()
+    except ShardedCallError as e:
+        return ["ShardedCallError", e.failures]
+    except Exception as e:  # noqa: BLE001 - recorded for the test
+        return [type(e).__name__, str(e)]
+    return None
+
+
+def build(rank: int, out: str, device: str) -> None:
+    """One-rank failures inside a build, each followed by a solve that
+    every rank serves: the tuner's measured mode and the preconditioner's
+    measured pair mode with a sweep that fails on the last rank alone,
+    and a memory hit whose schedule digest raises on the last rank
+    alone."""
+    from repro_torch.core import faults
+    from repro_torch.precond import Preconditioner
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.solver import operator as O
+    from repro_torch.solver.distributed import default_mesh
+    from repro_torch.sparse import generators
+
+    mesh = default_mesh(device_type=device)
+    last = dist.get_world_size() - 1
+    arrays, res = {}, {}
+    L = generators.random_lower(400, avg_offdiag=2.0, seed=3, max_back=24)
+    b = np.random.default_rng(0).standard_normal(400)
+
+    def armed():
+        return faults.fail_measurement() if rank == last \
+            else contextlib.nullcontext()
+
+    def plain(cache=False):
+        return TriangularOperator.from_csr(
+            L, tune="no_rewriting", chunk=32, max_deps=4, mesh=mesh,
+            cache=cache)
+
+    with armed():
+        res["tune"] = failed(lambda: TriangularOperator.from_csr(
+            L, tune="auto", chunk=32, max_deps=4, mesh=mesh,
+            measure_top_k=2, cache=False))
+    arrays["x_after_tune"] = plain().solve(b)
+    A = generators.poisson2d_spd(8, 8)
+    with armed():
+        res["pair"] = failed(lambda: Preconditioner.ic0(
+            A, tune="auto", mesh=mesh, measure_top_k=2, cache=False))
+    P = Preconditioner.ic0(A, tune="no_rewriting", mesh=mesh, cache=False)
+    arrays["pair_after"] = P.apply(np.ones(A.n_rows))
+    # a memory hit on every rank whose digest raises on the last rank
+    res["first_source"] = plain(cache=True).stats.cache_source
+    if rank == last:
+        once(O, "_schedule_digest", RuntimeError("injected digest failure"))
+    op = plain(cache=True)
+    res["digest_source"] = op.stats.cache_source
+    arrays["x_digest"] = op.solve(b)
+    res["hit_source"] = plain(cache=True).stats.cache_source
+    np.savez(Path(out) / f"rank{rank}.npz", **arrays)
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
 
 
 def idle(rank: int, out: str, device: str) -> None:
@@ -148,7 +223,6 @@ def pump_requests(gen, step):
 def serve(rank: int, out: str, device: str) -> None:
     from repro_torch import obs
     from repro_torch.core import faults
-    from repro_torch.core.resilience import ShardedCallError
     from repro_torch.serving import SolveService
     from repro_torch.serving.server import step_values
     from repro_torch.solver import (TriangularOperator, schedule_for_csr,
@@ -159,16 +233,6 @@ def serve(rank: int, out: str, device: str) -> None:
     mesh = default_mesh(device_type=device)
     last = dist.get_world_size() - 1
     arrays, res = {}, {}
-
-    def failed(call):
-        """What `call()` raised: (type, [(rank, reason), ...])."""
-        try:
-            call()
-        except ShardedCallError as e:
-            return ["ShardedCallError", e.failures]
-        except Exception as e:  # noqa: BLE001 - recorded for the test
-            return [type(e).__name__, str(e)]
-        return None
 
     # a sharded call that fails on the last rank alone
     L = generators.random_lower(400, avg_offdiag=2.0, seed=3, max_back=24)

@@ -64,6 +64,51 @@ def test_from_csr_auto_picks_the_reference_label(name):
     assert _rel(x, x_ref) <= REFINED_RTOL
 
 
+# the three sweeps besides L x = b (which the test above holds)
+OTHER_SWEEPS = [("lower", True), ("upper", False), ("upper", True)]
+
+
+@pytest.mark.parametrize("side,transpose", OTHER_SWEEPS)
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_from_csr_auto_every_sweep_picks_the_reference_label(
+        name, side, transpose):
+    """Lᵀ, U and Uᵀ (U = Lᵀ stored upper) under tune="auto": the
+    reference's pick, candidates and refined answer."""
+    L, L_ref = MATRICES[name](generators), MATRICES[name](ref_gen)
+    A, A_ref = (L, L_ref) if side == "lower" else \
+        (L.transpose(), L_ref.transpose())
+    kw = dict(side=side, transpose=transpose)
+    op = TriangularOperator.from_csr(A, device="cpu",
+                                     cost_model=CostModel(**CONSTANTS), **kw)
+    ref = RefOperator.from_csr(A_ref, cost_model=RefCostModel(**CONSTANTS),
+                               cache=False, **kw)
+    assert op.strategy == ref.strategy
+    assert [c.label for c in op.report.candidates] == \
+        [c.label for c in ref.report.candidates]
+    b = np.random.default_rng(3).standard_normal(L.n_rows)
+    x, x_ref = op.solve(b), ref.solve(b)
+    assert op.stats.last_residual <= 1e-10
+    assert _rel(x, x_ref) <= REFINED_RTOL
+
+
+@pytest.mark.parametrize("kind", ["ic0", "ilu0"])
+def test_preconditioner_auto_on_torso2_picks_the_reference_label(kind):
+    """The pair tuner on torso2's SPD system (lung2's is the test below):
+    the reference's pick, pair table and refined M^-1."""
+    A = generators.spd_from_lower(generators.torso2_like(0.05), seed=0)
+    A_ref = ref_gen.spd_from_lower(ref_gen.torso2_like(0.05), seed=0)
+    P = getattr(Preconditioner, kind)(A, device="cpu",
+                                      cost_model=CostModel(**CONSTANTS))
+    P_ref = getattr(RefPreconditioner, kind)(
+        A_ref, cost_model=RefCostModel(**CONSTANTS), cache=False)
+    assert P.strategy == P_ref.strategy
+    assert P.report.best_label == P_ref.report.best_label
+    assert P.report.combined == P_ref.report.combined
+    r = np.random.default_rng(4).standard_normal(A.n_rows)
+    assert _rel(P.apply(r, max_refine=6), P_ref.apply(r, max_refine=6)) \
+        <= REFINED_RTOL
+
+
 @pytest.mark.parametrize("kind", ["ic0", "ilu0"])
 def test_preconditioner_auto_picks_the_reference_label(kind):
     A = generators.spd_from_lower(generators.lung2_like(0.05), seed=0)

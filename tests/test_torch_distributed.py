@@ -698,6 +698,37 @@ def test_sharded_worlds(world, tmp_path):
     assert _rel(arrs0["x_lost_on_one"], solve_csr_seq(L, b)) < 1e-10
 
 
+def test_one_rank_failures_inside_a_build_are_agreed(tmp_path):
+    """Two gloo ranks whose collectives time out (so that ranks left in
+    different collectives fail the test instead of hanging it): a measured
+    tune, and a measured preconditioner pair, whose first sweep fails
+    before its first allocation on rank 1 alone raise the same
+    ShardedCallError on both ranks, naming rank 1,
+    and the next build and solve serve on both; a memory hit whose
+    schedule digest raises on rank 1 alone is agreed (both ranks build,
+    neither serves its hit alone), and the next lookup hits on both."""
+    ranks = _run_world(2, tmp_path / "build", "build")
+    (arrs0, res0), (arrs1, res1) = ranks
+    assert res0 == res1
+    for k in arrs0.files:
+        assert np.array_equal(arrs0[k], arrs1[k]), k
+    for case in ("tune", "pair"):
+        kind, failures = res0[case]
+        assert kind == "ShardedCallError", res0[case]
+        assert [r for r, _ in failures] == [1]
+        assert "injected out-of-memory" in failures[0][1]
+    L = generators.random_lower(400, avg_offdiag=2.0, seed=3, max_back=24)
+    b = np.random.default_rng(0).standard_normal(400)
+    assert _rel(arrs0["x_after_tune"], solve_csr_seq(L, b)) < 1e-10
+    A = generators.poisson2d_spd(8, 8)
+    assert np.isfinite(arrs0["pair_after"]).all()
+    assert arrs0["pair_after"].shape == (A.n_rows,)
+    assert res0["first_source"] == "built"
+    assert res0["digest_source"] == "built"
+    assert res0["hit_source"] == "memory"
+    assert _rel(arrs0["x_digest"], solve_csr_seq(L, b)) < 1e-10
+
+
 def test_sharded_service_world(tmp_path):
     """Two gloo ranks: a call that fails on the last rank alone (its input
     check, a step's local work, a step's scatter, through the operator)

@@ -19,7 +19,7 @@ from repro.serving import MicroBatcher as RefBatcher
 from repro.serving import SolveRequest as RefRequest
 
 from repro_torch.serving import Batch, BatchKey, MicroBatcher, SolveRequest
-from tests._optional_deps import HAS_HYPOTHESIS, given, settings, st
+from _optional_deps import HAS_HYPOTHESIS, given, settings, st
 
 torch.set_num_threads(1)
 
