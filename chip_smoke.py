@@ -200,7 +200,8 @@ non-zero:
    oracle's gate, with no packed or staged form of K1's;
    `count_all_gathers` beside the schedule's steps (families == steps: the
    paper's claim as barrier counts), and the preamble's; ms per sharded
-   sweep (CUDA events over `SHARDED_REPS`) beside K1's on the same
+   sweep (CUDA events over `SHARDED_REPS` calls in each of two turns, the
+   two strategies' sweeps timed in turns, A B B A) beside K1's on the same
    operator (`device_solve_fn(engine="cuda")`, launches not counted);
    the tuner under the mesh (its default cost model, which charges the
    preamble's barriers as the main schedule's) must pick, of the two
@@ -242,24 +243,38 @@ non-zero:
    0.25), each timed, with its launches; K1 and K2 must be launched, the
    plain version never.
 14. The LM serving path (`repro_torch.models`, `launch/serve.py`) for
-   the decoder-only families; it runs none of K1-K4 (the JAX package's LM
-   stack has no Pallas kernel), and its launch count of each is 0.  (a)
-   Each of the seven reduced configs (internvl2-1b, gemma-7b,
-   internlm2-1.8b, llama3-8b, qwen2-7b, llama4-scout-17b-a16e,
-   granite-moe-1b-a400m) in float32, drawn on the host and moved to the
-   card: prefill's logits and cache and two decode steps within 1e-4 of
-   the same model on the host.  (b) internlm2-1.8b at its full config in
-   float32: prefill plus one decode step within 2e-3 of `forward` on the
-   prompt plus that token.  (c) Full width in bfloat16, batch 4, 32
-   generated tokens, cache 552: llama3-8b, granite-moe-1b-a400m (prompt
-   512), internvl2-1b (256 prefix positions and a 256-token prompt), and
+   all five families; it runs none of K1-K4 (the JAX package's LM stack
+   has no Pallas kernel), and its launch count of each is 0.  (a) Each
+   of the ten reduced configs (internvl2-1b, gemma-7b, internlm2-1.8b,
+   llama3-8b, qwen2-7b, llama4-scout-17b-a16e, granite-moe-1b-a400m,
+   mamba2-130m, recurrentgemma-9b, seamless-m4t-large-v2) in float32,
+   drawn on the host and moved to the card: prefill's logits and its
+   whole cache or state and two decode steps (logits and cache) within
+   1e-4 of the same model on the host.  (b) internlm2-1.8b at its full
+   config in float32: prefill plus one decode step within 2e-3 of
+   `forward` on the prompt plus that token.  (c) Full width in bfloat16,
+   batch 4, 32 generated tokens, cache 552: llama3-8b,
+   granite-moe-1b-a400m, mamba2-130m, recurrentgemma-9b (prompt 512),
+   internvl2-1b (256 prefix positions and a 256-token prompt),
+   seamless-m4t-large-v2 (512 source frames and a 512-token prompt), and
    llama4-scout-17b-a16e at full width but 4 of its 48 layers (the whole
    model does not fit on one card): the parameter bytes, the peak memory,
    prefill ms and decode ms per token (CUDA events, median of 3 after a
-   warm-up), tokens/s, their bounds, and the decode step within 5e-2 of
-   `forward`, every logit finite.  (d) `python -m repro_torch.launch.serve
-   --arch internlm2-1.8b --batch 4 --prompt-len 32 --gen 16` in a new
-   process exits 0.  The phase prints its seconds.
+   warm-up), tokens/s, their bounds, the device's busy share, and the
+   decode step within 5e-2 of `forward`, every logit finite.  A MoE row
+   whose decode token took other experts than `forward`'s (a bf16
+   routing tie) is compared with `forward` rerun through the decode's
+   experts; a flip that the router probabilities' gap cannot explain, or
+   a gap over 1e-2, fails.  recurrentgemma-9b also runs past its 2,048
+   window, untimed: batch 1, a 2,600-token prompt (its ring wrapped, the
+   RG-LRU's last chunk a short one), prefill plus one decode step within
+   5e-2 of `forward`.  mamba2-130m's chunked SSD, at full width in
+   float32, untimed: prefill over 160 tokens against 160 decode steps
+   from a zero state, every layer's SSD and conv state and the last
+   logits within 2e-3.  (d) `python -m repro_torch.launch.serve
+   --arch ARCH --batch 4 --prompt-len 32 --gen 16` in a new process exits
+   0, for internlm2-1.8b and seamless-m4t-large-v2.  The phase prints its
+   seconds.
 15. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
@@ -278,6 +293,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -326,6 +342,18 @@ def rel_err(x: torch.Tensor, ref: torch.Tensor) -> tuple:
     ref64 = ref.double()
     diff = float((x.double() - ref64).abs().max())
     return diff, diff / max(1.0, float(ref64.abs().max()))
+
+
+def time_in_turns(fns: dict, reps: int, rounds: int = 2) -> dict:
+    """Mean ms a call of each of `fns`, timed in turns (A B, then B A,
+    ...), so that a host whose speed drifts weighs on each alike: the
+    mean over the rounds of `time_ms`."""
+    keys = list(fns)
+    out = {k: [] for k in keys}
+    for r in range(rounds):
+        for k in (keys if r % 2 == 0 else keys[::-1]):
+            out[k].append(time_ms(fns[k], reps, warmup=1))
+    return {k: float(np.mean(v)) for k, v in out.items()}
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -2594,9 +2622,10 @@ def phase_static(rng) -> tuple:
 # Picked on the CPU at lung2_like/torso2_like(0.02, 0.1), where 1.01 is
 # repaired in two rounds (residual ~2e-6) and 1.05 is not in three.
 WRONG_REPAIRED, WRONG_UNREPAIRED = 1.01, 3.0
-# phase 11: timed sharded sweeps a case (each takes a fraction of a
-# second), and the limit on its two gloo ranks' processes
-SHARDED_REPS = 3
+# phase 11: timed sharded sweeps a turn, two turns a strategy (each sweep
+# takes a fraction of a second), and the limit on its two gloo ranks'
+# processes
+SHARDED_REPS = 2
 SHARDED_RANK_TIMEOUT_S = 420
 
 
@@ -3204,8 +3233,8 @@ def sharded_two_ranks(tmp: Path) -> dict:
 
 def sharded_case(L, strat: str, mesh, b: np.ndarray) -> tuple:
     """One from_csr(mesh=) operator of phase 11: its checks, its barrier
-    count, its sweep's ms beside K1's on the same operator.  Returns (row,
-    operator)."""
+    count, K1's ms on the same operator.  Returns (row, operator, its
+    sharded sweep of b as a call)."""
     from repro_torch.solver import TriangularOperator
     from repro_torch.solver import distributed as D
     x_ref = oracle(L, b)
@@ -3229,7 +3258,6 @@ def sharded_case(L, strat: str, mesh, b: np.ndarray) -> tuple:
     gp = D.count_all_gathers(pre, mesh) if pre is not None else None
     bt = torch.as_tensor(b, dtype=torch.float32, device=op.device)
     fn = op.device_solve_fn()
-    sweep_ms = time_ms(lambda: fn(bt), SHARDED_REPS, warmup=1)
     # K1 on the same operator, for comparison only (its launches are not
     # the path's; it packs the tiles the sharded engine never reads)
     k1 = op.device_solve_fn(engine="cuda")
@@ -3242,9 +3270,9 @@ def sharded_case(L, strat: str, mesh, b: np.ndarray) -> tuple:
            "host_build_s": build_s, "solve_refined_s": solve_s,
            "refine_rounds": op.stats.refine_rounds, "residual": resid,
            "err_max_refine0": err0, "sharded_vs_k1": errk,
-           "sharded_sweep_ms": sweep_ms, "k1_sweep_ms": k1_ms}
+           "k1_sweep_ms": k1_ms}
     check(errk <= KERNEL_RTOL * 10, f"sharded sweep against K1's: {errk:.3e}")
-    return row, op
+    return row, op, functools.partial(fn, bt)
 
 
 def phase_sharded(rng, refs: dict) -> tuple:
@@ -3281,23 +3309,16 @@ def phase_sharded(rng, refs: dict) -> tuple:
     try:
         mesh = D.default_mesh()
         check(mesh.device_type == "cuda", f"an NCCL mesh of {mesh}")
-        rows, profiles = [], []
+        rows, profiles, sweep_ms = [], [], {}
         mats = {m: getattr(generators, m)(1.0)
                 for m in ("lung2_like", "torso2_like")}
         for mat, L in mats.items():
             b = rng.standard_normal(L.n_rows)
+            cases, sweeps = [], {}
             for strat in ("no_rewriting", "avgLevelCost"):
-                row, op = sharded_case(L, strat, mesh, b)
+                row, op, sweeps[strat] = sharded_case(L, strat, mesh, b)
                 row["case"] = f"{mat}(1.0)/{strat}"
-                rows.append(row)
-                log(f"  {row['case']:30s} steps={row['schedule_steps']} "
-                    f"all_gathers={row['all_gathers']} preamble="
-                    f"{row['preamble_all_gathers']} resid="
-                    f"{row['residual']:.2e} err0={row['err_max_refine0']:.2e}"
-                    f" vs_k1={row['sharded_vs_k1']:.2e} sharded_ms="
-                    f"{row['sharded_sweep_ms']:.3f} k1_ms="
-                    f"{row['k1_sweep_ms']:.4f} build_s="
-                    f"{row['host_build_s']:.2f}")
+                cases.append(row)
                 if strat == "no_rewriting":
                     prof = profile_schedule(op.schedule, b, mesh=mesh,
                                             reps=2, warmup=1)
@@ -3306,6 +3327,20 @@ def phase_sharded(rng, refs: dict) -> tuple:
                         np.median(prof.collective_ms)) * 1e3
                     row["step_us_median"] = float(
                         np.median(prof.step_ms)) * 1e3
+            # the sweeps are host-bound and the host's speed drifts: the
+            # two strategies' sweeps are timed in turns
+            sweep_ms[mat] = time_in_turns(sweeps, SHARDED_REPS)
+            for row in cases:
+                row["sharded_sweep_ms"] = sweep_ms[mat][row["strategy"]]
+                log(f"  {row['case']:30s} steps={row['schedule_steps']} "
+                    f"all_gathers={row['all_gathers']} preamble="
+                    f"{row['preamble_all_gathers']} resid="
+                    f"{row['residual']:.2e} err0={row['err_max_refine0']:.2e}"
+                    f" vs_k1={row['sharded_vs_k1']:.2e} sharded_ms="
+                    f"{row['sharded_sweep_ms']:.3f} k1_ms="
+                    f"{row['k1_sweep_ms']:.4f} build_s="
+                    f"{row['host_build_s']:.2f}")
+            rows += cases
         res["operators"] = rows
         # the tuner's model under the card's mesh charges the preamble's
         # barriers as the main schedule's: of the two strategies it picks
@@ -3317,8 +3352,7 @@ def phase_sharded(rng, refs: dict) -> tuple:
                 candidates=[NoRewrite(), AvgLevelCost()], engine=eng,
                 device=D.mesh_device(mesh),
                 cost_model=default_cost_model_for(eng)).tune(L)
-            ms = {r["strategy"]: r["sharded_sweep_ms"] for r in rows
-                  if r["case"].startswith(mat)}
+            ms = sweep_ms[mat]
             res["tuner"][mat] = {
                 "pick": rep.best.label,
                 "barriers": {c.label: c.steps + c.preamble_steps
@@ -3823,7 +3857,8 @@ def phase_examples() -> tuple:
 # -- phase 14: the LM serving path -------------------------------------------
 
 LM_ARCHS = ("internvl2-1b", "gemma-7b", "internlm2-1.8b", "llama3-8b",
-            "qwen2-7b", "llama4-scout-17b-a16e", "granite-moe-1b-a400m")
+            "qwen2-7b", "llama4-scout-17b-a16e", "granite-moe-1b-a400m",
+            "mamba2-130m", "recurrentgemma-9b", "seamless-m4t-large-v2")
 # the card's float32 model against the same model on the host, relative
 # to the logits' (or the cache's) scale: the two sum each product in
 # another order (and the card's matmuls tile it), ~1e-6 a layer
@@ -3836,6 +3871,12 @@ LM_F32_RTOL, LM_BF16_RTOL = 2e-3, 5e-2
 # hidden states and table (summed in another order): a product rounded to
 # bf16 would be ~2**-9 off
 LM_TIED_RTOL = 1e-5
+# a MoE's decode token against `forward`'s last token, through the same
+# experts: the largest gap of their router probabilities, any layer and
+# row (bf16 hidden states summed in another order).  The gaps read on the
+# H100 (PERF.md, §6) were at most 4.1e-3; a decode whose routing moves
+# further fails
+LM_ROUTER_GAP = 1e-2
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
 LM_CACHE = LM_PROMPT + LM_GEN + 8
 LM_REPS = 3
@@ -3846,49 +3887,88 @@ LM_FULL = (("llama3-8b", None, LM_PROMPT),
            ("internvl2-1b", None, LM_PROMPT - 256),
            # the whole model is ~216 GB in bf16: one card holds 4 of its
            # 48 layers at full width
-           ("llama4-scout-17b-a16e", 4, LM_PROMPT))
+           ("llama4-scout-17b-a16e", 4, LM_PROMPT),
+           ("mamba2-130m", None, LM_PROMPT),
+           ("recurrentgemma-9b", None, LM_PROMPT),
+           # as many source frames as prompt tokens, as launch/specs.py's
+           # encdec prefill pairs them
+           ("seamless-m4t-large-v2", None, LM_PROMPT))
+# the hybrid past its local-attention window (2,048): batch 1, a prompt
+# of 2,600 tokens, so the ring has wrapped before the decode step, and
+# the RG-LRU's last chunk of 256 is a short one (2,600 = 10 * 256 + 40)
+LM_PAST_WINDOW = ("recurrentgemma-9b", 2600)
+# the ssm's chunked SSD scan (prefill) against its single-step recurrence
+# (decode steps from a zero state) over the same prompt, at full width in
+# float32: (batch, prompt tokens: one whole chunk of 128 and a padded one
+# of 32)
+LM_SCAN_STEPS = ("mamba2-130m", 2, 160)
 
 
 def lm_inputs(cfg, B: int, S: int, rng, dev) -> tuple:
+    """(tokens (B, S), the family's extra inputs): the VLM prefix, or the
+    encdec family's S source frames, drawn after the tokens."""
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
     extra = {}
-    if cfg.frontend != "none":
+    if cfg.family == "encdec":
+        extra["src_embeds"] = torch.as_tensor(
+            rng.standard_normal((B, S, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    elif cfg.frontend != "none":
         extra["prefix_embeds"] = torch.as_tensor(
             rng.standard_normal((B, cfg.frontend_positions, cfg.d_model)),
             dtype=torch.float32, device=dev)
     return tokens, extra
 
 
+def lm_positions(tokens, extra) -> int:
+    """The positions a prompt fills: its tokens and the VLM prefix."""
+    prefix = extra.get("prefix_embeds")
+    return tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
+
+
+def lm_tensors(cache) -> list:
+    """A cache's or state's tensors in a fixed order (dicts by key, lists
+    in order)."""
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in lm_tensors(cache[k])]
+    if isinstance(cache, list):
+        return [t for c in cache for t in lm_tensors(c)]
+    return [cache]
+
+
+def lm_cache_err(card, host) -> float:
+    return max(rel_err(a.cpu(), b)[1]
+               for a, b in zip(lm_tensors(card), lm_tensors(host)))
+
+
 def lm_parity(rng) -> dict:
-    """(a) Each reduced decoder-only config in float32, drawn once on the
-    host and moved to the card: prefill (logits and cache) and two decode
-    steps (the second past the cache's ring) on the card against the same
-    model on the host."""
+    """(a) Each reduced config in float32, drawn once on the host and
+    moved to the card: prefill (logits and the whole cache or state) and
+    two decode steps (the second past the cache's ring) on the card
+    against the same model on the host."""
     import copy
     from repro_torch.configs import get_reduced
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     res = {}
     for arch in LM_ARCHS:
         cfg = get_reduced(arch)
-        cpu = T.init_params(SEED, cfg, device="cpu")
+        M = get_model(cfg)
+        cpu = M.init_params(SEED, cfg, device="cpu")
         card = copy.deepcopy(cpu).to(DEVICE)
         tokens, extra = lm_inputs(cfg, 2, 12, rng, "cpu")
-        S_tot = 12 + (cfg.frontend_positions if extra else 0)
+        S_tot = lm_positions(tokens, extra)
         errs = []
-        lp, cache = T.prefill(cpu, tokens, cfg, S_tot + 1, **extra)
-        lpc, cachec = T.prefill(card, tokens.to(DEVICE), cfg, S_tot + 1,
+        lp, cache = M.prefill(cpu, tokens, cfg, S_tot + 1, **extra)
+        lpc, cachec = M.prefill(card, tokens.to(DEVICE), cfg, S_tot + 1,
                                 **{k: v.to(DEVICE) for k, v in extra.items()})
-        errs += [rel_err(lpc.cpu(), lp)[1], rel_err(cachec["k"].cpu(),
-                                                     cache["k"])[1],
-                 rel_err(cachec["v"].cpu(), cache["v"])[1]]
+        errs += [rel_err(lpc.cpu(), lp)[1], lm_cache_err(cachec, cache)]
         nxt = rng.integers(0, cfg.vocab, (2, 2))
         for i in range(2):
             tok = torch.as_tensor(nxt[:, i:i + 1])
-            ld, cache = T.decode_step(cpu, tok, cache, S_tot + i, cfg)
-            ldc, cachec = T.decode_step(card, tok.to(DEVICE), cachec,
+            ld, cache = M.decode_step(cpu, tok, cache, S_tot + i, cfg)
+            ldc, cachec = M.decode_step(card, tok.to(DEVICE), cachec,
                                         S_tot + i, cfg)
-            errs += [rel_err(ldc.cpu(), ld)[1],
-                     rel_err(cachec["k"].cpu(), cache["k"])[1]]
+            errs += [rel_err(ldc.cpu(), ld)[1], lm_cache_err(cachec, cache)]
         res[arch] = max(errs)
         log(f"  (a) {arch} reduced float32: card vs host {max(errs):.3e}")
         check(max(errs) <= LM_PARITY_RTOL,
@@ -3922,26 +4002,110 @@ def lm_no_drops(model, cfg):
 def lm_against_forward(model, cfg, tokens, extra) -> tuple:
     """Prefill, then one decode step of its greedy token, against
     `forward` on the prompt plus that token: (rel. error of the prefill's
-    last logits, of the decode step's, whether every logit is finite).
-    A MoE runs without drops (`lm_no_drops`)."""
+    last logits, of the decode step's, whether every logit is finite, the
+    rows whose routing was pinned, the largest router-probability gap).
+    A MoE runs without drops (`lm_no_drops`).  Its decode token may take
+    other experts than `forward`'s last token where two experts' router
+    probabilities lie closer than the two paths' bf16 difference: then
+    `forward` runs again with those rows' last position pinned to the
+    decode's experts in every MoE layer (`lm_routes`), so every row is
+    compared through the same experts.  The decode's router probabilities
+    must lie within LM_ROUTER_GAP of `forward`'s in every layer and row."""
     with lm_no_drops(model, cfg) as wide:
         return _lm_against_forward(model, wide, tokens, extra)
 
 
+@contextlib.contextmanager
+def lm_routes(model, pin=None):
+    """Each MoE layer's routing of the last position, one entry a call:
+    yields {module: [(probs (B, E), sel (B, k)), ...]}.  `pin`, {module:
+    (rows, sel (len(rows), k))}, gives those rows' last position the
+    experts `sel` in place of its own picks."""
+    from repro_torch.models.mlp import MoE
+    routes = {}
+    mods = [m for m in model.modules() if isinstance(m, MoE)]
+    for m in mods:
+        def route(x, m=m, orig=m.route):
+            probs, sel, *rest = orig(x)
+            if pin and m in pin:
+                rows, want = pin[m]
+                sel = sel.clone()
+                sel[rows, -1] = want
+                rest = list(m.queue(probs, sel))
+            routes.setdefault(m, []).append((probs[:, -1], sel[:, -1]))
+            return (probs, sel, *rest)
+        m.route = route
+    try:
+        yield routes
+    finally:
+        for m in mods:
+            del m.route
+
+
+def lm_flips(dec: dict, fwd: dict) -> list:
+    """The rows whose decode token took other experts than `forward`'s
+    last token in some MoE layer, each flip logged with its margin (the
+    k-th against the (k+1)-th of `forward`'s probabilities) and the two
+    paths' router-probability gap.  Two top-k picks of probabilities that
+    lie at most `gap` apart can differ only where the margin is at most
+    2 * gap: a flip past that is a fault of the picks, and fails."""
+    flipped = set()
+    for m, [(pd, sd)] in dec.items():
+        pf, sf = fwd[m][0]
+        k = sd.shape[1]
+        for b in range(sd.shape[0]):
+            if torch.equal(sd[b].sort().values, sf[b].sort().values):
+                continue
+            top = pf[b].sort(descending=True).values
+            margin = float(top[k - 1] - top[k])
+            gap = float((pd[b] - pf[b]).abs().max())
+            log(f"      row {b}: the decode token's experts "
+                f"{sd[b].tolist()} against forward's {sf[b].tolist()}: "
+                f"margin {margin:.3e}, router probabilities {gap:.3e} "
+                f"apart; forward runs again through the decode's experts")
+            check(margin <= 2 * gap + 1e-7,
+                  f"row {b}: a flip that the probabilities' gap does not "
+                  f"explain (margin {margin:.3e}, gap {gap:.3e})")
+            flipped.add(b)
+    return sorted(flipped)
+
+
+def lm_forward_last(M, model, cfg, toks, extra, pin=None) -> tuple:
+    """`forward` on toks: (the MoE layers' routings of the last position,
+    the logits of the last two positions)."""
+    with torch.no_grad(), lm_routes(model, pin) as fwd:
+        if cfg.family == "encdec":
+            hidden, _ = M.forward(model, extra["src_embeds"], toks, cfg,
+                                  return_hidden=True)
+        else:
+            hidden, _ = M.forward(model, toks, cfg, return_hidden=True,
+                                  **extra)
+        return fwd, model.logits(hidden[:, -2:])
+
+
 def _lm_against_forward(model, cfg, tokens, extra) -> tuple:
-    from repro_torch.models import transformer as T
-    S_tot = tokens.shape[1] + (cfg.frontend_positions if extra else 0)
-    lp, cache = T.prefill(model, tokens, cfg, S_tot + 1, **extra)
+    from repro_torch.models import get_model
+    M = get_model(cfg)
+    S_tot = lm_positions(tokens, extra)
+    lp, cache = M.prefill(model, tokens, cfg, S_tot + 1, **extra)
     nxt = lp[:, -1:].argmax(dim=-1)
-    ld, cache = T.decode_step(model, nxt, cache, S_tot, cfg)
+    with lm_routes(model) as dec:
+        ld, cache = M.decode_step(model, nxt, cache, S_tot, cfg)
     del cache
-    with torch.no_grad():
-        hidden, _ = T.forward(model, torch.cat([tokens, nxt], dim=1), cfg,
-                              return_hidden=True, **extra)
-        full = model.logits(hidden[:, -2:])
+    toks = torch.cat([tokens, nxt], dim=1)
+    fwd, full = lm_forward_last(M, model, cfg, toks, extra)
+    flipped = lm_flips(dec, fwd)
+    if flipped:
+        pin = {m: (flipped, sd[flipped]) for m, [(_, sd)] in dec.items()}
+        fwd, full = lm_forward_last(M, model, cfg, toks, extra, pin)
+        check(not lm_flips(dec, fwd), "a pinned row kept other experts")
+    gap = max([float((pd - fwd[m][0][0]).abs().max())
+               for m, [(pd, _)] in dec.items()], default=0.0)
+    check(gap <= LM_ROUTER_GAP,
+          f"the decode's router probabilities are {gap:.3e} off forward's")
     finite = bool(torch.isfinite(lp).all() and torch.isfinite(ld).all())
     return (rel_err(lp[:, -1], full[:, 0])[1],
-            rel_err(ld[:, -1], full[:, 1])[1], finite)
+            rel_err(ld[:, -1], full[:, 1])[1], finite, flipped, gap)
 
 
 def lm_tied_logits(model, cfg, B: int, rng) -> float:
@@ -3966,7 +4130,8 @@ def lm_full_f32(rng) -> dict:
     t0 = time.perf_counter()
     model = T.init_params(SEED, cfg, device=DEVICE)
     tokens, extra = lm_inputs(cfg, 2, 64, rng, DEVICE)
-    e_pre, e_dec, finite = lm_against_forward(model, cfg, tokens, extra)
+    e_pre, e_dec, finite, _, _ = lm_against_forward(model, cfg, tokens,
+                                                    extra)
     n = sum(p.numel() for p in model.parameters())
     del model
     torch.cuda.empty_cache()
@@ -3979,39 +4144,174 @@ def lm_full_f32(rng) -> dict:
     return res
 
 
+def _dense_weights(modules) -> int:
+    """Elements of the dense (matmul) weights under `modules`."""
+    from repro_torch.models.common import Dense
+    return sum(m.w.numel() for mod in modules for m in mod.modules()
+               if isinstance(m, Dense))
+
+
+def _nbytes(modules) -> int:
+    return sum(p.numel() * p.element_size() for mod in modules
+               for p in mod.parameters())
+
+
 def lm_bounds(cfg, model, B: int, S_tot: int) -> dict:
     """The least time of a decode step (its bytes over the memory rate)
     and of the prefill (its products' operations over the bf16 rate, or
-    its bytes, the larger).  A decode step reads every parameter but the
-    untied embedding's unread rows; the MoE's dense dispatch reads every
-    expert ("all"), the batch's picks need at most min(E, B*k) of them a
-    layer ("active").  The KV cache read is the positions written, on
-    average over the steps; the prefill's attention is causal."""
+    the parameters' bytes, the larger), counted for this run's shapes.
+    A decode step reads every parameter it uses: not the untied
+    embedding's unread rows, nor the encoder's weights and the cross K/V
+    projections (encdec: their output is cached); the MoE's
+    dense dispatch reads every expert ("all"), the batch's picks need at
+    most min(E, B*k) of them a layer ("active").  It also reads its cache
+    or state: the KV positions written, on average over the steps (a
+    local ring at most its window), the SSD and conv states and the LRU
+    and conv states read and written, the cross K/V.  The prefill counts
+    its dense products (2 operations a weight and a token; the encoder's
+    over the source frames, the cross K/V products over them too), the
+    causal attention (non-causal in the encoder, full in the cross), the
+    SSD scan's chunk products, and the last position's logits."""
     isz = 2
     d, V = cfg.d_model, cfg.padded_vocab
-    hd, H, K, L = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv, cfg.n_layers
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in model.parameters())
+    hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv
+    param_bytes = _nbytes([model])
     embed_bytes = model.embed.w.numel() * isz
     read_all = param_bytes - (0 if cfg.tie_embeddings else embed_bytes)
+    kv_pos = S_tot + LM_GEN / 2              # KV positions read, on average
+
+    def attn_flops(q, k, causal: bool) -> float:
+        return 2 * 2 * B * H * hd * q * k / (2 if causal else 1)
+
+    logits = 2 * d * V * B
+    if cfg.family in ("dense", "moe"):
+        L = cfg.n_layers
+        state = 2 * L * B * K * hd * isz * kv_pos
+        emb = V * d * (1 if cfg.tie_embeddings else 2)
+        flops = (2 * (cfg.active_params_count() - emb) * B * S_tot + logits
+                 + L * attn_flops(S_tot, S_tot, True))
+    elif cfg.family == "ssm":
+        from repro_torch.models.mamba2 import _dims
+        d_inner, Hs, P, N = _dims(cfg)
+        L, W, Q = cfg.n_layers, cfg.ssm.conv_width, cfg.ssm.chunk
+        state = 2 * L * B * (Hs * P * N * 4 + (W - 1) * (d_inner + 2 * N)
+                             * isz)
+        nc = -(-S_tot // Q)
+        # per chunk: C B^T and its masked product with x dt (the causal
+        # half), the chunk states and the inter-chunk output
+        chunk = 2 * Q * Q / 2 * (N + Hs * P) + 2 * 2 * Q * Hs * P * N
+        flops = (2 * _dense_weights(model.blocks) * B * S_tot + logits
+                 + L * B * nc * chunk)
+    elif cfg.family == "hybrid":
+        from repro_torch.models.rglru import AttnLayer, RecLayer, _lru_width
+        w = _lru_width(cfg)
+        rec = sum(isinstance(m, RecLayer) for m in model.layers)
+        att = sum(isinstance(m, AttnLayer) for m in model.layers)
+        ring = min(kv_pos, LM_CACHE, cfg.window or LM_CACHE)
+        state = (2 * rec * B * w * (4 + 3 * isz)
+                 + att * 2 * B * K * hd * isz * ring)
+        # in_x, in_gate, the gates' two w x w products, out, the MLP
+        flops = (2 * _dense_weights(model.layers) * B * S_tot + logits
+                 + att * attn_flops(S_tot, min(S_tot, cfg.window or S_tot),
+                                    S_tot <= (cfg.window or S_tot)))
+    else:                                        # encdec
+        L = cfg.n_layers_decoder
+        S_src = S_tot                  # as many frames as prompt tokens
+        cross_kv = sum(b.cross.k.w.numel() + b.cross.v.w.numel()
+                       for b in model.dec)
+        # the decoder's weights but the cross K/V projections (their
+        # output is cached), the unembedding, the B embedding rows a step
+        # reads
+        read_all = (_nbytes(list(model.dec) + [model.ln_f, model.unembed])
+                    - cross_kv * isz + B * d * isz)
+        state = (2 * L * B * K * hd * isz * kv_pos
+                 + 2 * L * B * K * hd * isz * S_src)
+        flops = (2 * _dense_weights(model.enc) * B * S_src
+                 + cfg.n_layers * attn_flops(S_src, S_src, False)
+                 + 2 * (_dense_weights(model.dec) - cross_kv) * B * S_tot
+                 + 2 * cross_kv * B * S_src
+                 + L * (attn_flops(S_tot, S_tot, True)
+                        + attn_flops(S_tot, S_src, False)) + logits)
     read_active = read_all
     if cfg.family == "moe":
         mo = cfg.moe
         expert = 3 * d * mo.d_ff_expert * isz
-        read_active -= L * expert * (mo.num_experts -
-                                     min(mo.num_experts, B * mo.top_k))
-    kv = 2 * L * B * K * hd * isz * (S_tot + LM_GEN / 2)
-    emb = V * d * (1 if cfg.tie_embeddings else 2)
-    block_active = cfg.active_params_count() - emb
-    flops = (2 * block_active * B * S_tot + 2 * d * V * B
-             + L * 2 * 2 * B * H * hd * S_tot * S_tot / 2)
+        read_active -= cfg.n_layers * expert * (
+            mo.num_experts - min(mo.num_experts, B * mo.top_k))
     prefill_ms = max(flops / H100_BF16_FLOPS,
                      param_bytes / H100_BYTES_PER_S) * 1e3
-    return {"param_bytes": param_bytes,
-            "decode_bound_ms_all": (read_all + kv) / H100_BYTES_PER_S * 1e3,
-            "decode_bound_ms_active": (read_active + kv) / H100_BYTES_PER_S
+    return {"param_bytes": param_bytes, "decode_state_bytes": state,
+            "decode_bound_ms_all": (read_all + state) / H100_BYTES_PER_S
             * 1e3,
+            "decode_bound_ms_active": (read_active + state)
+            / H100_BYTES_PER_S * 1e3,
             "prefill_bound_ms": prefill_ms, "prefill_flops": flops}
+
+
+def lm_past_window(model, cfg, rng) -> dict:
+    """The hybrid past its window at full width, untimed: batch 1, a
+    prompt of LM_PAST_WINDOW's length (its ring wraps), prefill plus one
+    decode step against `forward`, every logit finite."""
+    t0 = time.perf_counter()
+    tokens, extra = lm_inputs(cfg, 1, LM_PAST_WINDOW[1], rng, DEVICE)
+    e_pre, e_dec, finite, _, _ = lm_against_forward(model, cfg, tokens,
+                                                    extra)
+    res = {"prompt": LM_PAST_WINDOW[1], "window": cfg.window,
+           "prefill_vs_forward": e_pre, "decode_vs_forward": e_dec,
+           "seconds": time.perf_counter() - t0}
+    log(f"      past the window: prompt {LM_PAST_WINDOW[1]} > window "
+        f"{cfg.window}, batch 1: prefill {e_pre:.3e}, decode {e_dec:.3e} "
+        f"off forward ({res['seconds']:.1f} s)")
+    check(finite and max(e_pre, e_dec) <= LM_BF16_RTOL,
+          f"{cfg.name} past its window: prefill+decode off forward or not "
+          f"finite: {res}")
+    return res
+
+
+def lm_scan_steps(cfg, rng, batch: int = LM_SCAN_STEPS[1],
+                  prompt: int = LM_SCAN_STEPS[2], device=DEVICE) -> dict:
+    """The ssm's scan at full width in float32, untimed: prefill (the
+    chunked SSD) against decode steps over the same tokens from a zero
+    state (the single-step recurrence): every layer's SSD state and conv
+    state, relative to their scales, and the last logits, within
+    LM_F32_RTOL.  The bf16 decode's check against `forward` cannot see
+    the scan: the two float32 scans differ by ~1e-7, cast to bf16 before
+    the residual add; in bf16 this run's 160 steps would compare two bf16
+    paths (a GEMM over the prompt, a GEMV a step) compounded over the
+    layers instead."""
+    from repro_torch.models import mamba2
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              activation_dtype="float32")
+    model = mamba2.init_params(SEED, cfg, device=device)
+    tokens, _ = lm_inputs(cfg, batch, prompt, rng, device)
+    lp, state = mamba2.prefill(model, tokens, cfg)
+    step = mamba2.init_state(cfg, batch, torch.float32, device=device)
+    for t in range(prompt):
+        ls, step = mamba2.decode_step(model, tokens[:, t:t + 1], step, t,
+                                      cfg)
+    del model
+
+    def scaled(x, ref) -> float:       # relative to ref's own scale
+        return rel_err(x, ref)[0] / max(1e-30, float(ref.abs().max()))
+
+    errs = {"ssd_state": scaled(step["ssd"], state["ssd"]),
+            "ssd_state_layer0": scaled(step["ssd"][0], state["ssd"][0]),
+            "conv_state": scaled(step["conv"], state["conv"]),
+            "logits": rel_err(ls, lp)[1]}
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (lp, ls, state["ssd"], step["ssd"]))
+    res = {"batch": batch, "prompt": prompt, "chunk": cfg.ssm.chunk,
+           **errs, "seconds": time.perf_counter() - t0}
+    log(f"      the chunked SSD against {prompt} single steps (float32, "
+        f"batch {batch}, chunk {cfg.ssm.chunk}): SSD state "
+        f"{errs['ssd_state']:.3e} (layer 0 {errs['ssd_state_layer0']:.3e}),"
+        f" conv state {errs['conv_state']:.3e}, last logits "
+        f"{errs['logits']:.3e} ({res['seconds']:.1f} s)")
+    check(finite and max(errs.values()) <= LM_F32_RTOL,
+          f"{cfg.name}: the chunked scan is off its recurrence or not "
+          f"finite: {res}")
+    return res
 
 
 def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
@@ -4020,18 +4320,19 @@ def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
     memory, the bounds, the decode step against `forward`."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    M = get_model(cfg)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = T.init_params(SEED, cfg, device=DEVICE)
+    model = M.init_params(SEED, cfg, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     B = LM_BATCH
     tokens, extra = lm_inputs(cfg, B, prompt, rng, DEVICE)
-    S_tot = prompt + (cfg.frontend_positions if extra else 0)
+    S_tot = lm_positions(tokens, extra)
     out = generate(cfg, model, tokens, LM_GEN, LM_CACHE, extra)  # warm-up
     check(out.shape == (B, LM_GEN), f"{arch}: generate gave {out.shape}")
     pre, dec = [], []
@@ -4039,12 +4340,12 @@ def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
     for _ in range(LM_REPS):
         torch.cuda.synchronize()
         ev[0].record()
-        logits, cache = T.prefill(model, tokens, cfg, LM_CACHE, **extra)
+        logits, cache = M.prefill(model, tokens, cfg, LM_CACHE, **extra)
         ev[1].record()
         tok = logits[:, -1:].argmax(dim=-1)
         ev[2].record()
         for i in range(LM_GEN - 1):
-            logits, cache = T.decode_step(model, tok, cache, S_tot + i, cfg)
+            logits, cache = M.decode_step(model, tok, cache, S_tot + i, cfg)
             tok = logits[:, -1:].argmax(dim=-1)
         ev[3].record()
         torch.cuda.synchronize()
@@ -4053,24 +4354,29 @@ def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
         del cache
     # where a step's time goes: the device's busy time (profiler) against
     # the events' wall time, and the largest kernels
-    logits, cache = T.prefill(model, tokens, cfg, LM_CACHE, **extra)
+    logits, cache = M.prefill(model, tokens, cfg, LM_CACHE, **extra)
     tok = logits[:, -1:].argmax(dim=-1)
-    busy = {"decode": device_profile(lambda: T.decode_step(
+    busy = {"decode": device_profile(lambda: M.decode_step(
         model, tok, cache, S_tot, cfg), reps=3),
-        "prefill": device_profile(lambda: T.prefill(
+        "prefill": device_profile(lambda: M.prefill(
             model, tokens, cfg, LM_CACHE, **extra))}
     del cache
-    e_pre, e_dec, finite = lm_against_forward(model, cfg, tokens, extra)
+    e_pre, e_dec, finite, pinned, gap = lm_against_forward(
+        model, cfg, tokens, extra)
     e_tied = lm_tied_logits(model, cfg, B, rng) if cfg.tie_embeddings \
         else None
     res = {"arch": arch, "layers": cfg.n_layers, "batch": B,
-           "prompt": prompt, "prefix": S_tot - prompt, "gen": LM_GEN,
-           "cache_len": LM_CACHE,
+           "prompt": prompt, "prefix": S_tot - prompt,
+           "source_frames": (extra["src_embeds"].shape[1]
+                             if "src_embeds" in extra else 0),
+           "gen": LM_GEN, "cache_len": LM_CACHE,
            "params": sum(p.numel() for p in model.parameters()),
            "init_s": init_s, "prefill_ms": float(np.median(pre)),
            "prefill_ms_all": pre, "decode_ms_per_token": float(np.median(dec)),
            "decode_ms_all": dec, "prefill_vs_forward": e_pre,
-           "decode_vs_forward": e_dec, "tied_logits_vs_float32": e_tied,
+           "decode_vs_forward": e_dec, "decode_pinned_rows": pinned,
+           "router_gap": gap if cfg.family == "moe" else None,
+           "tied_logits_vs_float32": e_tied,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            **lm_bounds(cfg, model, B, S_tot)}
     res["tokens_per_s"] = B / (res["decode_ms_per_token"] / 1e3)
@@ -4080,9 +4386,6 @@ def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
         res[f"{part}_device_ms"] = dev_ms
         res[f"{part}_busy_share"] = dev_ms / wall if dev_ms else None
         res[f"{part}_top_kernels"] = top_kernels(busy[part], 3)
-    del model
-    torch.cuda.empty_cache()
-    res["seconds"] = time.perf_counter() - t0
     log(f"  (c) {arch}{'' if layers is None else f' ({layers} layers)'} "
         f"bf16, {res['params']:,} parameters ({res['param_bytes'] / 1e9:.2f}"
         f" GB), peak {res['peak_bytes'] / 1e9:.2f} GB: prefill "
@@ -4091,8 +4394,9 @@ def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
         f"{res['decode_bound_ms_all']:.3f} all, "
         f"{res['decode_bound_ms_active']:.3f} active), "
         f"{res['tokens_per_s']:.1f} tokens/s; vs forward: prefill "
-        f"{e_pre:.3e}, decode {e_dec:.3e}; tied logits vs float32 "
-        f"{e_tied}; {res['seconds']:.1f} s")
+        f"{e_pre:.3e}, decode {e_dec:.3e} (rows pinned to the decode's "
+        f"experts: {pinned}, router probabilities {gap:.3e} apart); tied "
+        f"logits vs float32 {e_tied}")
     for part in ("prefill", "decode"):
         log(f"      {part}: device busy {res[f'{part}_device_ms']:.3f} ms "
             f"a call ({res[f'{part}_busy_share']}), top "
@@ -4102,14 +4406,21 @@ def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
     check(e_tied is None or e_tied <= LM_TIED_RTOL,
           f"{arch} bf16: the tied logits are {e_tied} off the float32 "
           f"product")
+    if arch == LM_PAST_WINDOW[0]:
+        res["past_window"] = lm_past_window(model, cfg, rng)
+    del model
+    torch.cuda.empty_cache()
+    if arch == LM_SCAN_STEPS[0]:
+        res["scan_steps"] = lm_scan_steps(cfg, rng)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"      {arch}: {res['seconds']:.1f} s")
     return res
 
 
-def lm_cli() -> dict:
+def lm_cli(arch: str) -> dict:
     """(d) The serving CLI in a new process on the card."""
     argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-            "internlm2-1.8b", "--batch", "4", "--prompt-len", "32", "--gen",
-            "16"]
+            arch, "--batch", "4", "--prompt-len", "32", "--gen", "16"]
     t0 = time.perf_counter()
     proc = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT,
                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
@@ -4119,12 +4430,12 @@ def lm_cli() -> dict:
     log(f"  (d) {' '.join(argv[1:])}: rc {proc.returncode}, "
         f"{res['seconds']:.1f} s; {proc.stdout.strip()}")
     check(proc.returncode == 0 and "generated (4, 16)" in proc.stdout,
-          f"the serving CLI failed: {proc.stderr[-2000:]}")
+          f"the serving CLI failed for {arch}: {proc.stderr[-2000:]}")
     return res
 
 
 def phase_lm(rng) -> tuple:
-    """The LM serving path (decoder-only families) on the card.  Returns
+    """The LM serving path (all five families) on the card.  Returns
     (result, launch counts of K1-K4 in this phase: all 0, since the LM
     path runs none of them)."""
     from repro_torch.kernels import spmv_ell as S
@@ -4137,7 +4448,8 @@ def phase_lm(rng) -> tuple:
         res = {"parity": lm_parity(rng), "full_f32": lm_full_f32(rng)}
         res["timed"] = [lm_timed(arch, layers, prompt, rng)
                         for arch, layers, prompt in LM_FULL]
-        res["cli"] = lm_cli()
+        res["cli"] = {arch: lm_cli(arch) for arch in
+                      ("internlm2-1.8b", "seamless-m4t-large-v2")}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     counts = dict(K.LAUNCHES)

@@ -1,14 +1,19 @@
-"""Serving driver: batched prefill + greedy decode with a KV cache.
+"""Serving driver: batched prefill + greedy decode with a KV cache (or the
+recurrent state), for every family.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --device cpu
 
 Port of `repro.launch.serve`.  Decode runs eagerly, one step at a time
 (no `torch.compile`, no CUDA graph).  The flags are the reference's, and
 `--device` (default cuda: without a card it raises).  `--reduced` is kept
 as the reference has it, `store_true` with `default=True`, so it cannot be
 turned off and `main` always serves the reduced config (reference fault
-R7 in ROADMAP.md); `generate` serves any config it is given.
+R7 in ROADMAP.md); `generate` serves any config it is given.  For the
+encdec family `main` draws frame embeddings (B, prompt-len, d) for the
+encoder after the tokens, from the same generator, as the reference does.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ def generate(cfg, params, tokens, gen_steps: int, cache_len: int,
     decode steps; (B, gen_steps) token ids (int64) on the model's device.
     The argmax runs over the padded vocabulary, as the reference's does;
     `extra` carries `prefix_embeds` for the VLM prefix, whose positions
-    come before the prompt's."""
+    come before the prompt's, or `src_embeds` (B, S_src, d) for the
+    encdec family's encoder."""
     model = get_model(cfg)
     extra = extra or {}
     logits, cache = model.prefill(params, tokens, cfg, cache_len=cache_len,
@@ -64,7 +70,11 @@ def main(argv=None):
     B, S = args.batch, args.prompt_len
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
     extra = {}
-    if cfg.frontend != "none":
+    if cfg.family == "encdec":
+        extra["src_embeds"] = torch.as_tensor(
+            rng.standard_normal((B, S, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    elif cfg.frontend != "none":
         extra["prefix_embeds"] = torch.as_tensor(
             rng.standard_normal((B, cfg.frontend_positions, cfg.d_model)),
             dtype=torch.float32, device=dev)

@@ -1,29 +1,32 @@
 """Unified model API: family dispatch for the serving entry points.
 
-Port of `repro.models.api`.  The port serves the dense and moe families
-(with the VLM prefix) through `models.transformer`; the ssm, hybrid and
-encdec families are not ported yet (ROADMAP queue 1, item 1: mamba2.py,
-rglru.py and encdec.py), and asking for them raises — there is no stand-in.
+Port of `repro.models.api`: the dense and moe families (with the VLM
+prefix) through `models.transformer`, ssm through `models.mamba2`, hybrid
+through `models.rglru`, encdec through `models.encdec`.
 """
 from __future__ import annotations
 
 import types
 
-from . import transformer
+from . import encdec, mamba2, rglru, transformer
 from .config import ArchConfig
 
 __all__ = ["get_model"]
 
 
 def get_model(cfg: ArchConfig) -> types.ModuleType:
-    """The module implementing cfg's family.  It exposes init_params(seed,
-    cfg, device=...), forward(params, tokens, cfg, ...), init_cache,
-    prefill(params, tokens, cfg, cache_len, ...) and decode_step(params,
-    token, cache, pos, cfg)."""
+    """The module implementing cfg's family.  It exposes MODEL (the
+    model class, built as MODEL(cfg, device=...)), init_params(seed, cfg,
+    device=...), forward(params, tokens, cfg, ...) (encdec's takes the
+    source embeddings first), prefill(params, tokens, cfg, cache_len, ...)
+    and decode_step(params, token, cache, pos, cfg); init_cache (init_state
+    for ssm) sizes the cache."""
     if cfg.family in ("dense", "moe"):
         return transformer
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: "
-            f"ROADMAP queue 1 (mamba2.py, rglru.py, encdec.py)")
+    if cfg.family == "ssm":
+        return mamba2
+    if cfg.family == "hybrid":
+        return rglru
+    if cfg.family == "encdec":
+        return encdec
     raise KeyError(cfg.family)

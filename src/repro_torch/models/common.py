@@ -23,14 +23,16 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
 
-__all__ = ["DTYPES", "Dense", "RMSNorm", "Embedding", "rope", "gelu",
-           "silu", "normal_"]
+__all__ = ["DTYPES", "Dense", "RMSNorm", "Embedding", "LanguageModel",
+           "build", "check_model", "on_device", "float32_product", "rope",
+           "gelu", "silu", "normal_"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -94,6 +96,75 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.w)
+
+
+def float32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T accumulated and returned in float32: on a card one product
+    with a float32 output, on the host the product of the float32 copies
+    (which hold the operands exactly)."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w.t())
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float().t())
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+def on_device(a, device) -> torch.Tensor:
+    """A tensor, or a numpy array (copied: it may be read-only), on
+    `device`."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a))
+    return a.to(device)
+
+
+class LanguageModel(nn.Module):
+    """What every family's model shares: the token table `embed`, the
+    final norm `ln_f` and the unembedding `unembed` (None when tied), and
+    the config `cfg` it was built for."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.w.device
+
+    def embed_inputs(self, tokens, prefix_embeds=None):
+        """Token embeddings in the activation dtype, with the modality
+        prefix (B, P, d) prepended."""
+        adt = DTYPES[self.cfg.activation_dtype]
+        x = self.embed(on_device(tokens, self.device).long()).to(adt)
+        if prefix_embeds is not None:
+            x = torch.cat([on_device(prefix_embeds, self.device).to(adt), x],
+                          dim=1)
+        return x
+
+    def logits(self, x):
+        """Float32 logits over `padded_vocab` of hidden states x.  Tied
+        logits are the float32 product of x and the embedding table, as
+        the reference's einsum with preferred_element_type=float32: in
+        bfloat16 they are not rounded to bfloat16."""
+        if self.unembed is None:
+            return float32_product(x, self.embed.w.to(x.dtype))
+        return self.unembed(x).float()
+
+
+def build(cls, seed, cfg, device):
+    """A family's `init_params(seed, cfg, device=...)`: the model `cls`
+    drawn on `device` (the card unless device="cpu"; "meta" allocates
+    nothing) from `seed`, an int or a `torch.Generator` on that device, so
+    a full-width model is never staged through host memory."""
+    dev = resolve_device(device)
+    gen = seed
+    if not isinstance(seed, torch.Generator) and dev.type != "meta":
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return cls(cfg, device=dev, generator=None if dev.type == "meta" else gen)
+
+
+def check_model(params, cfg) -> None:
+    if params.cfg != cfg:
+        raise ValueError(f"the model was built for {params.cfg.name!r}, "
+                         f"not {cfg.name!r}")
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,14 +1,21 @@
 """The reference's parameters carried into the port's modules.
 
-`from_reference_params(cfg, params)` takes the params pytree of
-`repro.models.transformer.init_params` as numpy arrays (nested dicts; the
-caller converts with `np.asarray`) and returns the port's `Transformer`
-holding the same numbers, so that tests run the same model through both
-packages.  The module's parameter names are the reference's paths
-("blocks.3.attn.q.w" for `params["blocks"]["attn"]["q"]["w"][3]`):
-  * the blocks, stacked on a leading (n_layers,) axis when the config
-    scans its layers (`scan_layers=True`), are unstacked; a list of
-    per-layer dicts is taken as it is;
+`from_reference_params(cfg, params)` takes the params pytree of the
+reference family's `init_params` as numpy arrays (nested dicts, lists and
+tuples; the caller converts with `np.asarray`) and returns the port's
+model for that family (`Transformer`, `Mamba2`, `RecurrentGemma`,
+`EncDec`) holding the same numbers, so that tests run the same model
+through both packages.  The module's parameter names are the reference's
+paths with the layer index put in ("blocks.3.attn.q.w" for
+`params["blocks"]["attn"]["q"]["w"][3]`):
+  * dense, moe, ssm: the blocks, stacked on a leading (n_layers,) axis
+    (always for ssm; for the others when the config scans its layers),
+    are unstacked; a list of per-layer dicts is taken as it is;
+  * hybrid: the reference stacks each pattern position p's layers into
+    `groups[p]` (a leading (G,) axis) and keeps the remainder in the list
+    `tail`; group p's slice g is layer g * len(pattern) + p ("layers.i"),
+    tail entry i is layer G * len(pattern) + i;
+  * encdec: `enc` and `dec`, stacked or lists as the blocks above;
   * dense weights keep the reference's (d_in, d_out) orientation (no
     transpose); the MoE stacks keep (E, d, dff) and (E, dff, d); biases
     (`qkv_bias`) and the shared expert carry across by name;
@@ -23,7 +30,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .transformer import Transformer
+from .api import get_model
+from .rglru import _group_split
 
 __all__ = ["from_reference_params", "reference_shapes"]
 
@@ -32,31 +40,51 @@ def _flatten(tree, prefix: str = ""):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _flatten(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for k, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{k}.")
     else:
         yield prefix[:-1], tree
 
 
-def _leaves(cfg, params):
-    """(port name, leaf, layer index or None) for every reference leaf; a
-    stacked block leaf comes once per layer."""
-    for name, leaf in _flatten({k: v for k, v in params.items()
-                                if k != "blocks"}):
-        yield name, leaf, None
-    blocks = params.get("blocks")
-    if blocks is None:
-        return
-    if isinstance(blocks, (list, tuple)):
-        for i, bp in enumerate(blocks):
+def _layers(prefix: str, tree, n: int, index=lambda j: j):
+    """(port name, leaf, row or None) for a tree of layers: a list of
+    per-layer dicts, or one dict stacked on a leading (n,) axis whose row
+    j is layer `index(j)`."""
+    if isinstance(tree, (list, tuple)):
+        for j, bp in enumerate(tree):
             for name, leaf in _flatten(bp):
-                yield f"blocks.{i}.{name}", leaf, None
+                yield f"{prefix}.{index(j)}.{name}", leaf, None
         return
-    for name, leaf in _flatten(blocks):
-        if leaf.shape[:1] != (cfg.n_layers,):
-            raise ValueError(f"stacked block leaf {name!r} has shape "
-                             f"{tuple(leaf.shape)}, not ({cfg.n_layers}, "
-                             f"...)")
-        for i in range(cfg.n_layers):
-            yield f"blocks.{i}.{name}", leaf, i
+    for name, leaf in _flatten(tree):
+        if leaf.shape[:1] != (n,):
+            raise ValueError(f"stacked {prefix} leaf {name!r} has shape "
+                             f"{tuple(leaf.shape)}, not ({n}, ...)")
+        for j in range(n):
+            yield f"{prefix}.{index(j)}.{name}", leaf, j
+
+
+def _leaves(cfg, params):
+    """(port name, leaf, row or None) for every reference leaf; a stacked
+    leaf comes once per layer, with the row that holds it."""
+    stacks = {"blocks": cfg.n_layers, "enc": cfg.n_layers,
+              "dec": cfg.n_layers_decoder}
+    for key, tree in params.items():
+        if key == "groups" and cfg.family == "hybrid":
+            plen = len(cfg.recurrent.pattern)
+            G, _ = _group_split(cfg)
+            for p, group in enumerate(tree):
+                yield from _layers("layers", group, G,
+                                   lambda g, p=p: g * plen + p)
+        elif key == "tail" and cfg.family == "hybrid":
+            base = _group_split(cfg)[0] * len(cfg.recurrent.pattern)
+            yield from _layers("layers", list(tree), 0,
+                               lambda i: base + i)
+        elif key in stacks:
+            yield from _layers(key, tree, stacks[key])
+        else:
+            for name, leaf in _flatten({key: tree}):
+                yield name, leaf, None
 
 
 def reference_shapes(cfg, params) -> dict:
@@ -74,11 +102,11 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
-def from_reference_params(cfg, params, *, device=None) -> Transformer:
-    """The port's `Transformer` for `cfg` holding the reference params'
+def from_reference_params(cfg, params, *, device=None):
+    """The port's model of `cfg`'s family holding the reference params'
     numbers, on `device` (the card unless device="cpu")."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)             # uninitialized
+    model = get_model(cfg).MODEL(cfg, device=dev)      # uninitialized
     ours = dict(model.named_parameters())
     shapes = reference_shapes(cfg, params)
     missing = sorted(set(ours) - set(shapes))

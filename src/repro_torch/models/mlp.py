@@ -66,13 +66,20 @@ class MoE(nn.Module):
         (B, S, k), gates (B, S, k) float32 after the keep mask, keep
         (B, S, k), slot (B, S*k): each pick's queue slot, E*cap if
         dropped, cap)."""
-        mo = self.cfg.moe
-        G, Tg, _ = x.shape
-        E, k = mo.num_experts, mo.top_k
         logits = self.router(x).float()                       # (G, Tg, E)
         probs = torch.softmax(logits, dim=-1)
-        srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-        gate_vals, sel = srt[..., :k], order[..., :k]         # (G, Tg, k)
+        order = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
+        sel = order[..., :self.cfg.moe.top_k]                 # (G, Tg, k)
+        return (probs, sel) + self.queue(probs, sel)
+
+    def queue(self, probs: torch.Tensor, sel: torch.Tensor):
+        """The picks `sel` (G, Tg, k) of `probs` (G, Tg, E) into the
+        expert queues: (gates (G, Tg, k) float32 after the keep mask, keep,
+        slot, cap) as `route` returns them."""
+        mo = self.cfg.moe
+        G, Tg, k = sel.shape
+        E = mo.num_experts
+        gate_vals = torch.gather(probs, -1, sel)
         gate_vals = gate_vals / torch.clamp(
             gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
         cap = max(1, -(-int(mo.capacity_factor * Tg * k) // E))
@@ -84,7 +91,7 @@ class MoE(nn.Module):
         gate_vals = gate_vals * keep.reshape(G, Tg, k)
         slot = torch.where(keep, sel_flat * cap + pos,
                            torch.full_like(pos, E * cap))
-        return probs, sel, gate_vals, keep.reshape(G, Tg, k), slot, cap
+        return gate_vals, keep.reshape(G, Tg, k), slot, cap
 
     def forward(self, x: torch.Tensor, act: str = "silu"):
         """x: (B, S, d) -> (y (B, S, d), aux_loss); a group is a row."""

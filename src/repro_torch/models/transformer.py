@@ -14,31 +14,17 @@ embedding table).  The training loss comes with the training slice.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from .attention import Attention
-from .common import DTYPES, Dense, Embedding, RMSNorm
+from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, build,
+                     check_model)
 from .mlp import GatedMLP, MoE
 
 __all__ = ["Block", "Transformer", "init_params", "forward", "init_cache",
-           "prefill", "decode_step"]
-
-
-def _float32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w.T accumulated and returned in float32: on a card one product
-    with a float32 output, on the host the product of the float32 copies
-    (which hold the operands exactly)."""
-    if x.dtype == torch.float32:
-        return torch.matmul(x, w.t())
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
-    else:
-        y = torch.mm(x2.float(), w.float().t())
-    return y.reshape(*x.shape[:-1], w.shape[0])
+           "prefill", "decode_step", "MODEL"]
 
 
 class Block(nn.Module):
@@ -62,7 +48,7 @@ class Block(nn.Module):
         return self.mlp(x, self.cfg.act), x.new_zeros((), dtype=torch.float32)
 
 
-class Transformer(nn.Module):
+class Transformer(LanguageModel):
     def __init__(self, cfg, *, device, generator=None):
         super().__init__()
         if cfg.family not in ("dense", "moe"):
@@ -78,28 +64,6 @@ class Transformer(nn.Module):
                             dtype=dtype)
         self.unembed = None if cfg.tie_embeddings else \
             Dense(cfg.d_model, cfg.padded_vocab, **kw)
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.w.device
-
-    def embed_inputs(self, tokens, prefix_embeds=None):
-        """Token embeddings in the activation dtype, with the modality
-        prefix (B, P, d) prepended."""
-        adt = DTYPES[self.cfg.activation_dtype]
-        x = self.embed(_on(tokens, self.device).long()).to(adt)
-        if prefix_embeds is not None:
-            x = torch.cat([_on(prefix_embeds, self.device).to(adt), x], dim=1)
-        return x
-
-    def logits(self, x):
-        """Float32 logits over `padded_vocab` of hidden states x.  Tied
-        logits are the float32 product of x and the embedding table, as
-        the reference's einsum with preferred_element_type=float32: in
-        bfloat16 they are not rounded to bfloat16."""
-        if self.unembed is None:
-            return _float32_product(x, self.embed.w.to(x.dtype))
-        return self.unembed(x).float()
 
     def forward(self, tokens, prefix_embeds=None, kv_chunk: int = 512,
                 return_hidden: bool = False):
@@ -117,23 +81,21 @@ class Transformer(nn.Module):
         return self.logits(x), aux_total
 
 
+MODEL = Transformer  # the family's model class
+
+
 def init_params(seed, cfg, *, device=None) -> Transformer:
     """The reference's `init_params(key, cfg)`: `seed` is an int or a
     `torch.Generator` on `device`.  Parameters are drawn on `device` (the
     card unless device="cpu"; "meta" allocates nothing), so a full-width
     model is never staged through host memory."""
-    dev = resolve_device(device)
-    gen = seed
-    if not isinstance(seed, torch.Generator) and dev.type != "meta":
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return Transformer(cfg, device=dev,
-                       generator=None if dev.type == "meta" else gen)
+    return build(Transformer, seed, cfg, device)
 
 
 def forward(params: Transformer, tokens, cfg, prefix_embeds=None,
             kv_chunk: int = 512, return_hidden: bool = False):
     """tokens (B, S) -> (logits (B, S_total, padded_vocab), aux)."""
-    _check(params, cfg)
+    check_model(params, cfg)
     return params(tokens, prefix_embeds, kv_chunk, return_hidden)
 
 
@@ -151,7 +113,7 @@ def prefill(params: Transformer, tokens, cfg, cache_len: int,
     """Run the prompt; (last logits (B, 1, V), cache).  Each layer's K/V go
     to ring slots (position p -> p % cache_len; the last cache_len
     positions are kept)."""
-    _check(params, cfg)
+    check_model(params, cfg)
     x = params.embed_inputs(tokens, prefix_embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
@@ -175,7 +137,7 @@ def prefill(params: Transformer, tokens, cfg, cache_len: int,
 def decode_step(params: Transformer, token, cache: dict, pos: int, cfg):
     """One decode step.  token (B, 1); pos: the absolute position (an int);
     returns (logits (B, 1, V), cache), the cache written in place."""
-    _check(params, cfg)
+    check_model(params, cfg)
     pos = int(pos)
     x = params.embed_inputs(token)
     for i, bp in enumerate(params.blocks):
@@ -185,17 +147,3 @@ def decode_step(params: Transformer, token, cache: dict, pos: int, cfg):
         m, _ = bp.ffn(bp.ln2(x))
         x = x + m
     return params.logits(params.ln_f(x)), cache
-
-
-def _on(a, device) -> torch.Tensor:
-    """A tensor, or a numpy array (copied: it may be read-only), on
-    `device`."""
-    if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.array(a))
-    return a.to(device)
-
-
-def _check(params, cfg) -> None:
-    if params.cfg != cfg:
-        raise ValueError(f"the model was built for {params.cfg.name!r}, "
-                         f"not {cfg.name!r}")

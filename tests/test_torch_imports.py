@@ -85,7 +85,8 @@ print(len(names))
     for name in ("repro_torch.core.portfolio", "repro_torch.obs",
                  "repro_torch.obs.profile", "repro_torch.obs.calibrate",
                  "repro_torch.solver.api", "repro_torch.core.codegen",
-                 "repro_torch.sparse.io"):
+                 "repro_torch.sparse.io", "repro_torch.models.mamba2",
+                 "repro_torch.models.rglru", "repro_torch.models.encdec"):
         assert name in imported, name
 
 

@@ -8,9 +8,10 @@ CPU.
 * `input_specs` for all 40 (arch x shape) cells: the same kinds, keys,
   shapes and dtypes as the reference's `ShapeDtypeStruct`s, every port
   spec a tensor on the meta device, and the same 8 skips;
-* the seven decoder-only architectures at full size on the meta device:
-  every parameter's shape equals `jax.eval_shape` of the reference's
-  `init_params` (its stacked blocks unstacked), and nothing is allocated.
+* all ten architectures at full size on the meta device: every
+  parameter's shape and dtype equal `jax.eval_shape` of the reference's
+  `init_params` (its stacked blocks, groups and tail unstacked into
+  layers), and nothing is allocated.
 
 Exact equality throughout (no tolerance: these are integers and shapes).
 """
@@ -22,13 +23,11 @@ import torch
 
 from repro_torch import configs as P
 from repro_torch.launch import specs as S
-from repro_torch.models import convert, transformer
+from repro_torch.models import convert, get_model
 
 torch.set_num_threads(1)
 
 ARCHS = sorted(P.CLI_IDS)
-DECODER_ARCHS = ["internvl2-1b", "gemma-7b", "internlm2-1.8b", "llama3-8b",
-                 "qwen2-7b", "llama4-scout-17b-a16e", "granite-moe-1b-a400m"]
 
 
 def test_registry_matches_reference():
@@ -99,18 +98,21 @@ def test_input_specs_cover_the_40_cells():
     assert len(skips) == 8 and {s for _, s in skips} == {"long_500k"}
 
 
-@pytest.mark.parametrize("arch", DECODER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_config_shapes_on_meta_match_reference(arch):
     import jax
     from repro import configs as R
     from repro.models import get_model as ref_get_model
     cfg, rcfg = P.get_config(arch), R.get_config(arch)
-    model = transformer.init_params(0, cfg, device="meta")
+    model = get_model(cfg).init_params(0, cfg, device="meta")
     assert all(p.is_meta for p in model.parameters())
     ref = jax.eval_shape(lambda k: ref_get_model(rcfg).init_params(k, rcfg),
                          jax.random.PRNGKey(0))
     theirs = convert.reference_shapes(cfg, ref)
     ours = {k: tuple(p.shape) for k, p in model.named_parameters()}
     assert ours == theirs
-    dtypes = {str(p.dtype) for p in model.parameters()}
-    assert dtypes == {"torch.bfloat16"}
+    dtypes = {k: np.dtype(leaf.dtype).name
+              for k, leaf, _ in convert._leaves(cfg, ref)}
+    assert {k: str(p.dtype).removeprefix("torch.")
+            for k, p in model.named_parameters()} == dtypes
+    assert "bfloat16" in dtypes.values()

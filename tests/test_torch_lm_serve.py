@@ -13,9 +13,12 @@ generator:
 * the port's `generate` equals the reference's `generate` up to the
   first step whose margin is below that bound (all of them when none);
 * the VLM prefix (internvl2-1b: the first decode position counts the
-  prefix), the MoE (granite, llama4) and a dense model (internlm2);
-* `python -m repro_torch.launch.serve --device cpu` runs, and without a
-  card its default device raises.
+  prefix), the MoE (granite, llama4), a dense model (internlm2), the ssm
+  (mamba2), the hybrid (recurrentgemma) and the encdec family (seamless,
+  its source frames drawn after the prompt);
+* `python -m repro_torch.launch.serve --device cpu` runs, for the ssm,
+  hybrid and encdec families too, and without a card its default device
+  raises.
 """
 import subprocess
 import sys
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.launch import serve
-from repro_torch.models import convert, transformer
+from repro_torch.models import convert, get_model, transformer
 
 torch.set_num_threads(1)
 
@@ -42,7 +45,9 @@ def _rel(x, ref):
 
 
 @pytest.mark.parametrize("arch", ["internvl2-1b", "granite-moe-1b-a400m",
-                                  "llama4-scout-17b-a16e", "internlm2-1.8b"])
+                                  "llama4-scout-17b-a16e", "internlm2-1.8b",
+                                  "mamba2-130m", "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"])
 def test_generate_matches_reference_teacher_forced(arch):
     import jax
     import jax.numpy as jnp
@@ -50,7 +55,7 @@ def test_generate_matches_reference_teacher_forced(arch):
     from repro.launch.serve import generate as ref_generate
     from repro.models import get_model as ref_get_model
     cfg, rcfg = get_reduced(arch), R.get_reduced(arch)
-    ref = ref_get_model(rcfg)
+    ref, M = ref_get_model(rcfg), get_model(cfg)
     p = jax.tree.map(np.asarray, ref.init_params(jax.random.PRNGKey(7),
                                                  rcfg))
     model = convert.from_reference_params(cfg, p, device="cpu")
@@ -58,7 +63,11 @@ def test_generate_matches_reference_teacher_forced(arch):
     B, S, gen = 3, 10, 8
     tokens = rng.integers(0, cfg.vocab, (B, S))
     extra, rextra = {}, {}
-    if cfg.frontend != "none":
+    if cfg.family == "encdec":
+        src = rng.standard_normal((B, S, cfg.d_model))
+        extra = {"src_embeds": torch.as_tensor(src, dtype=torch.float32)}
+        rextra = {"src_embeds": jnp.asarray(src, jnp.float32)}
+    elif cfg.frontend != "none":
         pe = rng.standard_normal((B, cfg.frontend_positions, cfg.d_model))
         extra = {"prefix_embeds": torch.as_tensor(pe, dtype=torch.float32)}
         rextra = {"prefix_embeds": jnp.asarray(pe, jnp.float32)}
@@ -76,11 +85,11 @@ def test_generate_matches_reference_teacher_forced(arch):
                                        rcache, jnp.int32(pos0 + i), rcfg)
         rlogits.append(np.asarray(rlog[:, -1]))
     # the port, teacher-forced on the reference's tokens
-    lg, cache = transformer.prefill(model, tokens, cfg, cache_len, **extra)
+    lg, cache = M.prefill(model, tokens, cfg, cache_len, **extra)
     logits = [lg[:, -1].numpy()]
     for i in range(gen - 1):
-        lg, cache = transformer.decode_step(model, ref_out[:, i:i + 1],
-                                            cache, pos0 + i, cfg)
+        lg, cache = M.decode_step(model, ref_out[:, i:i + 1], cache,
+                                  pos0 + i, cfg)
         logits.append(lg[:, -1].numpy())
     first_tie = gen
     for i, (ours, theirs) in enumerate(zip(logits, rlogits)):
@@ -119,6 +128,19 @@ def test_serve_cli_on_the_cpu():
                        "OMP_NUM_THREADS": "1"}, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "generated (2, 4)" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m",
+                                  "recurrentgemma-9b"])
+def test_serve_main_serves_the_recurrent_and_encdec_families(arch):
+    """`main` on the CPU for the ssm, hybrid and encdec families (encdec
+    with its source frames drawn after the tokens); the tokens lie in the
+    padded vocabulary."""
+    out = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "6",
+                      "--gen", "4", "--device", "cpu"])
+    assert tuple(out.shape) == (2, 4)
+    cfg = get_reduced(arch)
+    assert 0 <= int(out.min()) and int(out.max()) < cfg.padded_vocab
 
 
 def test_serve_main_keeps_the_reference_flags():

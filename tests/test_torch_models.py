@@ -445,14 +445,29 @@ def test_convert_keeps_tied_embeddings_and_the_dense_orientation():
     assert np.array_equal(model.embed.w.numpy(), p["embed"]["w"])
 
 
-# -- no fallback --------------------------------------------------------------
+# -- dispatch, no fallback ---------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2"])
-def test_get_model_raises_for_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        get_model(get_reduced(arch))
+@pytest.mark.parametrize("family,arch,module", [
+    ("dense", "llama3-8b", "transformer"),
+    ("moe", "granite-moe-1b-a400m", "transformer"),
+    ("ssm", "mamba2-130m", "mamba2"),
+    ("hybrid", "recurrentgemma-9b", "rglru"),
+    ("encdec", "seamless-m4t-large-v2", "encdec"),
+    ("unknown", "llama3-8b", None)])
+def test_get_model_serves_each_family(family, arch, module):
+    """Each family's module, as the reference's dispatch; an unknown
+    family raises KeyError (there is no stand-in)."""
+    import repro_torch.models as models
+    cfg = get_reduced(arch)
+    assert cfg.family == family or module is None
+    if module is None:
+        with pytest.raises(KeyError):
+            get_model(dataclasses.replace(cfg, family=family))
+        return
+    M = get_model(cfg)
+    assert M is getattr(models, module)
+    assert type(M.init_params(0, cfg, device="meta")) is M.MODEL
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
