@@ -209,7 +209,7 @@ non-zero:
    `profile_schedule(mesh=)` on the no_rewriting schedules (the median
    collective us per step) and `CostModel.sharded().calibrate` on the
    two; IC(0)-PCG under one mesh (`Preconditioner.ic0(mesh=)`, the
-   sharded `device_matvec`) on spd_from_lower(lung2_like(1.0), seed=0)
+   sharded `device_matvec`) on spd_from_lower(torso2_like(1.0), seed=0)
    to a true residual <= 1e-7; `core.faults.lose_mesh` on a fresh
    operator, which K1 must serve with one `EngineFallbackWarning` and
    "sharded->cuda".  The plain version never runs, the host reference
@@ -259,11 +259,11 @@ non-zero:
    seamless-m4t-large-v2 (512 source frames and a 512-token prompt), and
    llama4-scout-17b-a16e at full width but 4 of its 48 layers (the whole
    model does not fit on one card): the parameter bytes, the peak memory,
-   prefill ms and decode ms per token (CUDA events, median of 3 after a
-   warm-up), tokens/s, their bounds, the device's busy share, and the
-   decode step within 5e-2 of `forward`, every logit finite.  A MoE row
-   whose decode token took other experts than `forward`'s (a bf16
-   routing tie) is compared with `forward` rerun through the decode's
+   prefill ms and decode ms per token (CUDA events, median of 2 after a
+   warm-up generate of 2 tokens), tokens/s, their bounds, the device's
+   busy share, and the decode step within 5e-2 of `forward`, every logit
+   finite.  A MoE row whose decode token took other experts than
+   `forward`'s (a bf16 routing tie) is compared with `forward` rerun through the decode's
    experts; a flip that the router probabilities' gap cannot explain, or
    a gap over 1e-2, fails.  recurrentgemma-9b also runs past its 2,048
    window, untimed: batch 1, a 2,600-token prompt (its ring wrapped, the
@@ -275,11 +275,39 @@ non-zero:
    --arch ARCH --batch 4 --prompt-len 32 --gen 16` in a new process exits
    0, for internlm2-1.8b and seamless-m4t-large-v2.  The phase prints its
    seconds.
-15. The kernels line and the contract line.
+15. The LM training path (`repro_torch.train`, `launch/train.py`,
+   `examples/torch_train_lm.py`); like phase 14 it runs none of K1-K4,
+   and its launch count of each is 0.  (1) Each of the ten reduced
+   configs in float32: one `make_train_step` step (AdamW lr 1e-3) on the
+   card and on the host from the same seed and `SyntheticLM` batch
+   (2 x 32): loss, grad norm and lr within 1e-4 relative, AdamW's m within
+   1e-4 of its leaf's largest, the updated parameters within 1e-4 of
+   their leaf's largest where the host's gradient is above 1e-3 of its
+   leaf's largest (elsewhere within 2 lr: Adam's first step turns a
+   gradient at float noise into +-lr).  (2) internlm2-1.8b at full width
+   in bfloat16 (1,889,533,952 parameters, float32 m and v), drawn on the
+   card: `SyntheticLM` batch 4 x 1,024 through the `Prefetcher`, AdamW as
+   `launch.train.main` builds it for --steps 8, 8 steps under
+   `StepMonitor` and `RunGuard.check_loss`, remat in 6 groups of 4
+   layers: every loss and grad norm finite, the last loss below the
+   first, every parameter given a finite gradient; the same state's loss
+   and grad norm with remat off (one extra train step) within 1e-6 and
+   1e-3 of remat on; ms a step (median of steps 2-7) and tokens/s, the
+   state's bytes, the peak memory with remat on and off, the model FLOPs
+   (6 N tokens) and what remat recomputes, their share of the dense bf16
+   peak, and from `torch.profiler` over the 8th step the device's busy
+   share and its top six ops.  (3) `launch.train.main` on the card at the
+   reduced internlm2 (batch 4 x 64): 40 steps straight; a run aborted
+   after 25 steps resumes from its checkpoint and ends within 1e-3 of the
+   straight run's final loss; a step whose update turns every parameter
+   NaN rolls back to the checkpoint saved after step 20 and the run ends
+   finite.  (4) `examples/torch_train_lm.py` with --steps 48 --batch 4
+   --seq 64.  The phase prints its seconds.
+16. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
-With `--sweep` or `--ab`, phases 3-14 give way to studies of the SpTRSV
+With `--sweep` or `--ab`, phases 3-15 give way to studies of the SpTRSV
 kernel on lung2's and torso2's L and IC(0) L^T (R = 1, 8) and of K4 on
 phase 3's systems, written to chiprun_out/chip_smoke_study.json
 (`--only sptrsv` or `--only spmv` keeps one of the two): `--sweep` times
@@ -295,6 +323,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -380,23 +409,30 @@ def device_profile(fn, reps: int = 1, flush: bool = False) -> dict:
     trace shows no device time.  With `flush`, a 64 MB buffer is zeroed
     before each call, so that `fn` finds the 50 MB L2 cold (the zeroing
     kernel then appears in the dict under its own name)."""
-    from torch.profiler import ProfilerActivity, profile
     buf = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if flush
            else None)
     fn()
     torch.cuda.synchronize()
+    return profiled(fn, reps, buf)[1]
+
+
+def profiled(fn, reps: int = 1, buf=None) -> tuple:
+    """(fn's last result, its device time per call kernel by kernel) from
+    a torch.profiler trace of `reps` calls (no warm-up); `buf` is zeroed
+    before each."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             if buf is not None:
                 buf.zero_()
-            fn()
+            out = fn()
         torch.cuda.synchronize()
-    out = {}
+    times = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if us > 0:
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
-    return out
+            times[e.key] = times.get(e.key, 0.0) + us / 1e3 / reps
+    return out, times
 
 
 def kernel_ms(prof: dict, name: str):
@@ -3372,8 +3408,9 @@ def phase_sharded(rng, refs: dict) -> tuple:
             f"CostModel.sharded().calibrate: collective "
             f"{fit.collective_latency_us:.3f} us, step "
             f"{fit.step_overhead_us:.3f} us")
-        # IC(0)-PCG under one mesh: the sharded matvec and both sweeps
-        A = generators.spd_from_lower(mats["lung2_like"], seed=0)
+        # IC(0)-PCG under one mesh: the sharded matvec and both sweeps, on
+        # torso2's system (lung2's L^T sweep has 2,717 steps with carries)
+        A = generators.spd_from_lower(mats["torso2_like"], seed=0)
         x_true = rng.standard_normal(A.n_rows)
         b_np = A.matvec(x_true)
         bt = torch.as_tensor(b_np, device="cuda")
@@ -3383,7 +3420,7 @@ def phase_sharded(rng, refs: dict) -> tuple:
         sol, pcg_s = synced_s(lambda: cg(mv, bt, preconditioner=P,
                                          tol=PCG_TOL, maxiter=PCG_MAXITER))
         resid = true_residual(A, sol.x, b_np)
-        res["pcg"] = {"case": "spd_from_lower(lung2_like(1.0))/ic0/"
+        res["pcg"] = {"case": "spd_from_lower(torso2_like(1.0))/ic0/"
                               "no_rewriting",
                       "engines": [P.forward.engine, P.backward.engine],
                       "schedule_steps": [P.forward.schedule.num_steps,
@@ -3816,23 +3853,29 @@ EXAMPLE_ARGS = {"quickstart": [], "pcg_ic0": [], "timestepping": [],
                 "transform_study": ["--scale", "0.25"]}
 
 
-def phase_examples() -> tuple:
-    """The four examples' `main` on the card, each timed.  Returns
-    (result, launch counts of this path)."""
+def example_main(name: str):
+    """`main` of examples/torch_<name>.py."""
     import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def phase_examples() -> tuple:
+    """The four SpTRSV examples' `main` on the card, each timed.  Returns
+    (result, launch counts of this path)."""
     from repro_torch.kernels import sptrsv_level as K
     from repro_torch.solver import TriangularOperator
     K.reset_launch_counts()
     res = {}
     for name, argv in EXAMPLE_ARGS.items():
         TriangularOperator.clear_memory_cache()
-        spec = importlib.util.spec_from_file_location(
-            f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        main = example_main(name)
         before = dict(K.LAUNCHES)
         t0 = time.perf_counter()
-        out = mod.main(argv)
+        out = main(argv)
         secs = time.perf_counter() - t0
         res[name] = {"argv": argv, "seconds": secs,
                      "launches": {k: v - before.get(k, 0)
@@ -3879,7 +3922,8 @@ LM_TIED_RTOL = 1e-5
 LM_ROUTER_GAP = 1e-2
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
 LM_CACHE = LM_PROMPT + LM_GEN + 8
-LM_REPS = 3
+LM_REPS = 2
+LM_WARMUP_GEN = 2
 H100_BF16_FLOPS = 989e12        # dense bfloat16 tensor cores (SXM)
 # (arch, layers kept: None is the whole config; prompt tokens)
 LM_FULL = (("llama3-8b", None, LM_PROMPT),
@@ -4333,8 +4377,10 @@ def lm_timed(arch: str, layers, prompt: int, rng) -> dict:
     B = LM_BATCH
     tokens, extra = lm_inputs(cfg, B, prompt, rng, DEVICE)
     S_tot = lm_positions(tokens, extra)
-    out = generate(cfg, model, tokens, LM_GEN, LM_CACHE, extra)  # warm-up
-    check(out.shape == (B, LM_GEN), f"{arch}: generate gave {out.shape}")
+    # warm-up: a prefill and one decode step
+    out = generate(cfg, model, tokens, LM_WARMUP_GEN, LM_CACHE, extra)
+    check(out.shape == (B, LM_WARMUP_GEN),
+          f"{arch}: generate gave {out.shape}")
     pre, dec = [], []
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     for _ in range(LM_REPS):
@@ -4459,10 +4505,334 @@ def phase_lm(rng) -> tuple:
     return res, counts
 
 
+# -- phase 15: the LM training path ------------------------------------------
+
+# one step on the card against the same step on the host, each reduced
+# architecture in float32 (loss, grad norm, lr; m, which is 0.1 x the
+# clipped float32 gradient, relative to its leaf's largest; the updated
+# parameters relative to the leaf's largest, where the host's gradient is
+# above 1e-3 of its leaf's largest: on Adam's first step a gradient at
+# float noise becomes +-lr, so elsewhere a parameter may move by 2 lr)
+TRAIN_RTOL = 1e-4
+TRAIN_GRAD_FLOOR = 1e-3
+TRAIN_PARITY_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+TRAIN_PARITY_SHAPE = (2, 32)            # batch, sequence
+# the full-width run: internlm2-1.8b (bf16), SyntheticLM at batch 4 x
+# 1,024 through the Prefetcher, AdamW as `launch.train.main` builds it
+# for --steps 8, remat in groups of 4
+TRAIN_FULL = ("internlm2-1.8b", 4, 1024, 8)
+# the same state's loss and grad norm with remat off against on: the same
+# forward, the backward's sums in another order (bf16)
+TRAIN_REMAT_RTOL = 1e-3
+# `launch.train.main` on the card: the reduced internlm2 (float32), batch
+# 4 x 64, 40 steps, checkpoints every 20; a run aborted after 25 steps
+# resumes; its final loss within 1e-3 of the straight run's (the
+# reference's test_restart_equivalence); a NaN injected at step 30 rolls
+# back to the checkpoint saved after step 20
+TRAIN_MAIN = ["--arch", "internlm2-1.8b", "--steps", "40", "--batch", "4",
+              "--seq", "64", "--log-every", "100"]
+TRAIN_RESTART_RTOL = 1e-3
+TRAIN_NAN_AT = 30
+TRAIN_EXAMPLE_ARGS = ["--steps", "48", "--batch", "4", "--seq", "64"]
+
+
+def train_data(cfg, seq: int, batch: int):
+    """`SyntheticLM` for cfg as `launch.train.main` builds it."""
+    from repro_torch.train.data import SyntheticLM
+    return SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                       seed=SEED, frontend=cfg.frontend,
+                       frontend_positions=cfg.frontend_positions,
+                       d_model=cfg.d_model, encdec=cfg.family == "encdec")
+
+
+def leaf_rel(x: torch.Tensor, ref: torch.Tensor, where=None) -> float:
+    """max |x - ref| (over `where`) relative to max |ref| of the leaf."""
+    d = (x.detach().cpu().double() - ref.detach().cpu().double()).abs()
+    if where is not None:
+        d = d[where]
+    scale = float(ref.detach().abs().max())
+    return float(d.max()) / max(scale, 1e-30) if d.numel() else 0.0
+
+
+def train_parity() -> dict:
+    """(1) One `make_train_step` step on the card and on the host from the
+    same seed and batch, each reduced architecture in float32."""
+    import copy
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    res = {}
+    opt = AdamWConfig(**TRAIN_PARITY_OPT)
+    for arch in LM_ARCHS:
+        cfg = get_reduced(arch)
+        host = init_state(SEED, cfg, device="cpu")
+        model = copy.deepcopy(host["params"]).to(DEVICE)
+        card = {"params": model, "opt": init_opt_state(model)}
+        batch = train_data(cfg, TRAIN_PARITY_SHAPE[1],
+                           TRAIN_PARITY_SHAPE[0]).batch_at(0)
+        step = make_train_step(cfg, opt)
+        card, mc = step(card, batch)
+        host, mh = step(host, batch)
+        e = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+             for k in ("loss", "grad_norm", "lr")}
+        e["m"] = max(leaf_rel(card["opt"]["m"][n], t)
+                     for n, t in host["opt"]["m"].items())
+        e["params"], e["params_noise"] = 0.0, 0.0
+        lr = float(mh["lr"])
+        for (n, q), (_, p) in zip(card["params"].named_parameters(),
+                                  host["params"].named_parameters()):
+            g = host["opt"]["m"][n].abs()
+            sure = g > TRAIN_GRAD_FLOOR * float(g.max())
+            e["params"] = max(e["params"], leaf_rel(q, p, sure))
+            apart = (q.detach().cpu() - p.detach()).abs()[~sure]
+            if apart.numel():
+                e["params_noise"] = max(e["params_noise"],
+                                        float(apart.max()))
+        res[arch] = e
+        log(f"  (1) {arch} reduced float32 step: card vs host "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in e.items()})}")
+        check(max(e["loss"], e["grad_norm"], e["lr"], e["m"], e["params"])
+              <= TRAIN_RTOL and e["params_noise"] <= 2 * lr * (1 + 1e-3),
+              f"{arch}: the card's train step is off the host's: {e}")
+    return res
+
+
+def train_flops(cfg, tokens: int) -> dict:
+    """Model FLOPs of one step (6 N tokens, N = `params_count()`), and
+    what the two-level remat recomputes on top: two more forwards of the
+    blocks' products (a group's, then each layer's) and one of the
+    unembedding (the loss chunk's)."""
+    n = cfg.params_count()
+    blocks = n - cfg.padded_vocab * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    return {"params": n, "model_flops": 6 * n * tokens,
+            "remat_flops": (2 * 2 * blocks
+                            + 2 * cfg.padded_vocab * cfg.d_model) * tokens}
+
+
+def train_full() -> dict:
+    """(2) internlm2-1.8b at full width in bf16 for 8 steps on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.data import Prefetcher
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.resilience import RunGuard, StepMonitor
+    from repro_torch.train.train_step import to_device, value_and_grad
+    arch, B, S, steps = TRAIN_FULL
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    state = init_state(SEED, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state["params"]
+    state_bytes = {
+        "params": sum(p.numel() * p.element_size()
+                      for p in model.parameters()),
+        "m_and_v": sum(t.numel() * 4 for t in state["opt"]["m"].values())
+        * 2}
+    state_bytes["grads"] = state_bytes["params"]
+    data = train_data(cfg, S, B)
+    it = Prefetcher(data.batch_at(s) for s in range(steps + 1))
+    opt = AdamWConfig(total_steps=steps, warmup_steps=max(10, steps // 20))
+    step_fn = make_train_step(cfg, opt)
+    mon, guard = StepMonitor(), RunGuard(None, interval=steps + 1)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_s = [], [], []
+    for i in range(steps):
+        batch = next(it)
+        mon.start()
+        if i < steps - 1:
+            state, met = step_fn(state, batch)
+        else:       # where a step's time goes: the last under the profiler
+            (state, met), prof = profiled(lambda: step_fn(state, batch))
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        t = mon.finish()
+        check(guard.check_loss(loss), f"{arch}: step {i} loss {loss}")
+        losses.append(loss)
+        gnorms.append(float(met["grad_norm"]))
+        step_s.append(t["step_time_s"])
+    peak_remat = torch.cuda.max_memory_allocated()
+    # the same state with remat on (loss and gradients, no update) and one
+    # extra train step with remat off
+    batch = next(it)
+    loss_on, grads = value_and_grad(
+        model, to_device(batch, model.device),
+        lambda p, b: get_model(cfg).loss_fn(p, b, cfg))
+    missing = sorted(n for n, g in grads.items() if g is None)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values()
+                 if g is not None)
+    gnorm_on = float(global_norm({n: g for n, g in grads.items()
+                                  if g is not None}))
+    loss_on = float(loss_on)
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    off_cfg = dataclasses.replace(cfg, remat=False)
+    state, met = make_train_step(off_cfg, opt)(state, batch)
+    loss_off, gnorm_off = float(met["loss"]), float(met["grad_norm"])
+    peak_off = torch.cuda.max_memory_allocated()
+    del state, model
+    torch.cuda.empty_cache()
+    tokens = B * S
+    ms = float(np.median(step_s[1:-1])) * 1e3     # not the first, the traced
+    res = {"arch": arch, "batch": B, "seq": S, "steps": steps,
+           "remat_group": cfg.remat_group, "init_s": init_s,
+           "state_bytes": state_bytes, "losses": losses,
+           "grad_norms": gnorms, "step_ms_all": [x * 1e3 for x in step_s],
+           "step_ms": ms, "tokens_per_s": tokens / (ms / 1e3),
+           "peak_bytes_remat": peak_remat, "peak_bytes_no_remat": peak_off,
+           "remat_on": {"loss": loss_on, "grad_norm": gnorm_on},
+           "remat_off": {"loss": loss_off, "grad_norm": gnorm_off},
+           "no_grad": missing, "grads_finite": finite,
+           "stragglers": mon.stragglers, **train_flops(cfg, tokens)}
+    res["model_flops_share"] = res["model_flops"] / (ms / 1e3) \
+        / H100_BF16_FLOPS
+    res["with_remat_flops_share"] = (res["model_flops"]
+                                     + res["remat_flops"]) / (ms / 1e3) \
+        / H100_BF16_FLOPS
+    dev_ms = sum(prof.values())
+    res["profiled_device_ms"] = dev_ms
+    res["busy_share"] = dev_ms / ms if dev_ms else None
+    res["top_ops"] = top_kernels(prof, 6)
+    log(f"  (2) {arch} bf16 full width, {res['params']:,} parameters, "
+        f"batch {B} x {S}, remat groups of {cfg.remat_group}: state "
+        f"{sum(state_bytes.values()) / 1e9:.2f} GB "
+        f"({json.dumps({k: v / 1e9 for k, v in state_bytes.items()})} GB), "
+        f"init {init_s:.1f} s")
+    log(f"      losses {[f'{x:.4f}' for x in losses]}, grad norms "
+        f"{[f'{x:.3f}' for x in gnorms]}")
+    log(f"      {ms:.1f} ms a step (median of steps 2-{steps - 1}; all "
+        f"{[f'{x * 1e3:.1f}' for x in step_s]}), {res['tokens_per_s']:.0f} "
+        f"tokens/s; peak memory {peak_remat / 1e9:.2f} GB with remat, "
+        f"{peak_off / 1e9:.2f} GB without")
+    log(f"      model FLOPs 6 N tokens {res['model_flops']:.4e} a step, "
+        f"{res['model_flops_share']:.4f} of the H100's dense bf16 peak "
+        f"(989 TFLOP/s, NVIDIA's H100 SXM data sheet); remat recomputes "
+        f"{res['remat_flops']:.4e} more ({res['with_remat_flops_share']:.4f}"
+        f" with it)")
+    log(f"      remat on vs off, same state: loss {loss_on:.6f} / "
+        f"{loss_off:.6f}, grad norm {gnorm_on:.6f} / {gnorm_off:.6f}")
+    log(f"      profiled step {steps}: device busy {dev_ms:.1f} ms of "
+        f"{ms:.1f} ({res['busy_share']}), top {res['top_ops']}")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{arch}: a loss or grad norm is not finite: {res}")
+    check(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses}")
+    check(not missing and finite,
+          f"{arch}: parameters without a finite gradient: {missing}")
+    check(loss_on == loss_off or abs(loss_on - loss_off)
+          <= 1e-6 * abs(loss_on), f"{arch}: remat changed the loss: "
+          f"{loss_on} vs {loss_off}")
+    check(abs(gnorm_on - gnorm_off) <= TRAIN_REMAT_RTOL * gnorm_on,
+          f"{arch}: remat changed the grad norm: {gnorm_on} vs {gnorm_off}")
+    return res
+
+
+@contextlib.contextmanager
+def poisoned_step(at: int, restored: list):
+    """`launch.train`'s train step with the parameters made NaN and a NaN
+    loss at its `at`-th call (a blown-up update), and its restores
+    recorded as (step, all parameters finite)."""
+    from repro_torch.launch import train as T
+    real_make, real_restore = T.ts_mod.make_train_step, T.ckpt_mod.restore
+
+    def make(*a, **kw):
+        step, calls = real_make(*a, **kw), [0]
+
+        def f(state, batch):
+            state, met = step(state, batch)
+            calls[0] += 1
+            if calls[0] == at:
+                with torch.no_grad():
+                    for p in state["params"].parameters():
+                        p.fill_(float("nan"))
+                met = dict(met, loss=torch.tensor(float("nan")))
+            return state, met
+        return f
+
+    def restore(*a, **kw):
+        state, step = real_restore(*a, **kw)
+        restored.append((step, all(bool(torch.isfinite(p).all()) for p in
+                                   state["params"].parameters())))
+        return state, step
+
+    T.ts_mod.make_train_step, T.ckpt_mod.restore = make, restore
+    try:
+        yield
+    finally:
+        T.ts_mod.make_train_step, T.ckpt_mod.restore = real_make, \
+            real_restore
+
+
+def train_main_runs() -> dict:
+    """(3) `launch.train.main` on the card: straight, aborted and resumed,
+    and with a NaN step rolled back."""
+    import tempfile
+    from repro_torch.launch import train as T
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train-") as tmp:
+        def run(name, *extra):
+            t0 = time.perf_counter()
+            out = T.main(TRAIN_MAIN + ["--ckpt-dir", f"{tmp}/{name}",
+                                       *extra])
+            return out, time.perf_counter() - t0
+        full, full_s = run("a", "--ckpt-every", "20")
+        part, _ = run("b", "--ckpt-every", "20", "--abort-after", "25")
+        resumed, _ = run("b", "--resume", "--ckpt-every", "100")
+        restored = []
+        with poisoned_step(TRAIN_NAN_AT, restored):
+            nan_run, _ = run("c", "--ckpt-every", "20")
+    res = {"full": full, "full_s": full_s, "aborted": len(part),
+           "resumed": resumed, "nan_run": nan_run, "restored": restored,
+           "restart_rel": abs(resumed[-1] - full[-1]) / abs(full[-1])}
+    log(f"  (3) launch.train.main: 40 steps {full[0]:.4f} -> {full[-1]:.4f} "
+        f"in {full_s:.1f} s; aborted after {len(part)}, resumed "
+        f"{len(resumed)} steps to {resumed[-1]:.4f} (rel "
+        f"{res['restart_rel']:.3e}); NaN at step {TRAIN_NAN_AT}: restored "
+        f"{restored}, {len(nan_run)} healthy steps, last "
+        f"{nan_run[-1]:.4f}")
+    check(len(part) == 25 and len(resumed) == 40 - 21
+          and res["restart_rel"] <= TRAIN_RESTART_RTOL,
+          f"the resumed run is not the straight one: {res}")
+    check(restored == [(21, True)] and len(nan_run) == 39
+          and all(math.isfinite(x) for x in nan_run),
+          f"the NaN step did not roll back to the checkpoint: {res}")
+    return res
+
+
+def phase_train() -> tuple:
+    """The LM training path on the card.  Returns (result, launch counts
+    of K1-K4 in this phase: all 0, since the LM path runs none of them)."""
+    from repro_torch.kernels import spmv_ell as S
+    from repro_torch.kernels import sptrsv_level as K
+    K.reset_launch_counts()
+    S.reset_launch_counts()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    try:
+        res = {"parity": train_parity(), "full": train_full(),
+               "main": train_main_runs()}
+        t0 = time.perf_counter()
+        out = example_main("train_lm")(TRAIN_EXAMPLE_ARGS)
+        res["example"] = {"argv": TRAIN_EXAMPLE_ARGS, "result": out,
+                          "seconds": time.perf_counter() - t0}
+        log(f"  (4) example train_lm {' '.join(TRAIN_EXAMPLE_ARGS)}: "
+            f"{res['example']['seconds']:.1f} s, {out}")
+        check(out["resumed_last"] < out["first"],
+              f"the training example did not improve: {out}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    counts = dict(K.LAUNCHES)
+    counts.update(S.LAUNCHES)
+    check(not any(counts.values()),
+          f"the training path launched a SpTRSV or SpMV kernel: {counts}")
+    return res, counts
+
+
 def kernels_line(krows: list, *path_counts: dict,
                  served_err: dict | None = None) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the main paths (phases 4 to 14)."""
+    launches summed over the main paths (phases 4 to 15)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -4626,10 +4996,15 @@ def run(args, tuned_dir: str) -> int:
     lm, lm_counts = phase_lm(rng)
     lm["seconds"] = time.perf_counter() - t14
     log(f"  phase 14 took {lm['seconds']:.1f} s")
+    log("== 15. the LM training path")
+    t15 = time.perf_counter()
+    train, train_counts = phase_train()
+    train["seconds"] = time.perf_counter() - t15
+    log(f"  phase 15 took {train['seconds']:.1f} s")
     line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts,
                         serve_counts, static_counts, resil_counts,
                         shard_counts, mserve_counts, example_counts,
-                        lm_counts,
+                        lm_counts, train_counts,
                         served_err=serve["kernels_vs_plain_max_abs_err"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -4645,7 +5020,8 @@ def run(args, tuned_dir: str) -> int:
          "sharded_launches": shard_counts, "mesh_service": mserve,
          "mesh_service_launches": mserve_counts, "examples": examples,
          "examples_launches": example_counts, "lm": lm,
-         "lm_launches": lm_counts, "code_size": code_size,
+         "lm_launches": lm_counts, "train": train,
+         "train_launches": train_counts, "code_size": code_size,
          "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

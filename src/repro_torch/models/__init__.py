@@ -1,5 +1,6 @@
-"""The LM stack's serving half for all five families (dense, moe with the
-VLM prefix, ssm, hybrid, encdec): configs schema, building blocks,
+"""The LM stack for all five families (dense, moe with the VLM prefix,
+ssm, hybrid, encdec), serving and training losses: configs schema,
+building blocks,
 attention, MLP/MoE, the transformer, Mamba-2, the RG-LRU hybrid, the
 encoder-decoder, the family dispatch and the reference-weights converter.
 Port of `repro.models`; imports torch only."""

@@ -22,8 +22,9 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .common import Dense, rope
+from .common import Dense, recording, rope
 
 __all__ = ["Attention", "NEG_INF"]
 
@@ -41,7 +42,8 @@ def _chunked_attn(q, k, v, *, causal: bool, window: int, q_offset: int,
     q: (B, Sq, H, hd); k/v: (B, Sk, K, hd) with H % K == 0.  K/V are
     expanded to the H heads (head h <- kv head h // G).  q and kv are
     padded to whole chunks; padded kv positions are masked (kv_pos < Sk)
-    and padded q rows sliced off.  Returns (B, Sq, H, hd) in q's dtype."""
+    and padded q rows sliced off.  Returns (B, Sq, H, hd) in q's dtype.
+    While a graph is recorded each q block is checkpointed."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -60,9 +62,9 @@ def _chunked_attn(q, k, v, *, causal: bool, window: int, q_offset: int,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, kp))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, kp))
     dev = q.device
-    blocks = []
-    for i in range(nq):
-        qi = q[:, i * q_chunk:(i + 1) * q_chunk].float() * scale
+
+    def q_block(qi, i):
+        qi = qi.float() * scale
         q_pos = q_offset + i * q_chunk + torch.arange(q_chunk, device=dev)
         m = torch.full((B, q_chunk, H), NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -89,7 +91,16 @@ def _chunked_attn(q, k, v, *, causal: bool, window: int, q_offset: int,
                                                        p, vj)
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
-        blocks.append(out.to(q.dtype))
+        return out.to(q.dtype)
+
+    # under a recorded graph each q block is checkpointed (the
+    # reference's per-block remat): a layer's backward holds one block's
+    # kv loop at a time
+    remat = any(recording(t) for t in (q, k, v))
+    blocks = [checkpoint(q_block, q[:, i * q_chunk:(i + 1) * q_chunk], i,
+                         use_reentrant=False) if remat
+              else q_block(q[:, i * q_chunk:(i + 1) * q_chunk], i)
+              for i in range(nq)]
     return torch.cat(blocks, dim=1)[:, :Sq]
 
 

@@ -23,6 +23,13 @@ paths with the layer index put in ("blocks.3.attn.q.w" for
 A missing or unexpected key, or a shape that differs, raises ValueError.
 Bfloat16 arrays (ml_dtypes) pass through float32, which holds them
 exactly.
+
+`named_arrays(cfg, tree)` is the same mapping for any params-shaped
+reference tree (gradients, AdamW's m and v): {port name: numpy array}.
+`from_reference_state(cfg, state)` carries a reference train state
+{"params", "opt": {"m", "v", "step"}} into the port's (the model with its
+gradients on, and name-keyed float32 m and v, as `train.init_state`
+builds it).
 """
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ from ..device import resolve_device
 from .api import get_model
 from .rglru import _group_split
 
-__all__ = ["from_reference_params", "reference_shapes"]
+__all__ = ["from_reference_params", "reference_shapes", "named_arrays",
+           "from_reference_state"]
 
 
 def _flatten(tree, prefix: str = ""):
@@ -124,3 +132,29 @@ def from_reference_params(cfg, params, *, device=None):
             src = _tensor(leaf if i is None else np.asarray(leaf)[i])
             ours[name].copy_(src)
     return model
+
+
+def named_arrays(cfg, tree) -> dict:
+    """{port parameter name: numpy array} of a params-shaped reference
+    tree: a stacked leaf gives one array a layer."""
+    return {name: np.asarray(leaf if i is None else np.asarray(leaf)[i])
+            for name, leaf, i in _leaves(cfg, tree)}
+
+
+def from_reference_state(cfg, state, *, device=None) -> dict:
+    """The port's train state holding a reference train state's numbers:
+    {"params": the model (gradients on), "opt": {"m", "v": {name: float32
+    tensor}, "step": int32 tensor}} on `device` (the card unless
+    device="cpu")."""
+    model = from_reference_params(cfg, state["params"], device=device)
+    model.requires_grad_(True)
+    dev = model.device
+    opt = state["opt"]
+
+    def moments(tree):
+        return {k: torch.from_numpy(np.array(a, np.float32)).to(dev)
+                for k, a in named_arrays(cfg, tree).items()}
+    return {"params": model,
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=dev)}}

@@ -1,13 +1,17 @@
 """Encoder-decoder transformer backbone (SeamlessM4T-v2's): the encdec
 family.
 
-Port of `repro.models.encdec`'s serving half: `init_params` returns an
-`EncDec` module (embedding, the encoder's and decoder's `ModuleList`s,
-the encoder's and the decoder's final norms, the unembedding), and
-`encode`, `forward`, `init_cache`, `prefill` and `decode_step` keep the
-reference's signatures with that module in place of the params pytree
+Port of `repro.models.encdec`: `init_params` returns an `EncDec` module
+(embedding, the encoder's and decoder's `ModuleList`s, the encoder's and
+the decoder's final norms, the unembedding), and `encode`, `forward`,
+`loss_fn`, `init_cache`, `prefill` and `decode_step` keep the reference's
+signatures with that module in place of the params pytree
 (`models.convert` unstacks the reference's blocks when it stacks them,
-`scan_layers=True`, and takes its lists as they are otherwise).
+`scan_layers=True`, and takes its lists as they are otherwise).  While a
+graph is recorded and the config scans its layers, the encoder and the
+decoder each run under the reference's two-level remat
+(`common.run_layers`); `loss_fn` is the decoder's chunked cross-entropy,
+untied.
 
 The audio frontend is a stub, as in the reference: the caller gives the
 encoder frame embeddings (B, S_src, d).  The encoder is non-causal; each
@@ -26,11 +30,12 @@ from torch import nn
 from ..device import resolve_device
 from .attention import Attention
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, build,
-                     check_model, on_device)
+                     check_model, on_device, remat_groups, run_layers)
 from .mlp import GatedMLP
 
 __all__ = ["EncBlock", "DecBlock", "EncDec", "init_params", "encode",
-           "forward", "init_cache", "prefill", "decode_step", "MODEL"]
+           "forward", "loss_fn", "init_cache", "prefill", "decode_step",
+           "MODEL"]
 
 
 class EncBlock(nn.Module):
@@ -97,21 +102,29 @@ class EncDec(LanguageModel):
         self.ln_f = RMSNorm(cfg.d_model, **norm)
         self.unembed = Dense(cfg.d_model, cfg.padded_vocab, **kw)
 
-    def encode(self, src_embeds, kv_chunk: int = 512):
-        adt = DTYPES[self.cfg.activation_dtype]
+    def encode(self, src_embeds, kv_chunk: int = 512, cfg=None):
+        cfg = cfg or self.cfg
+        adt = DTYPES[cfg.activation_dtype]
         x = on_device(src_embeds, self.device).to(adt)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for bp in self.enc:
-            x = bp(x, positions, kv_chunk)
+        x = run_layers([lambda x, bp=bp: bp(x, positions, kv_chunk)
+                        for bp in self.enc], x,
+                       remat_groups(cfg.n_layers, cfg.remat_group),
+                       cfg.scan_layers and self.remat(cfg))
         return self.ln_enc(x)
 
     def forward(self, batch_src, tgt_tokens, kv_chunk: int = 512,
-                return_hidden: bool = False):
-        enc_out = self.encode(batch_src, kv_chunk)
+                return_hidden: bool = False, cfg=None):
+        """`cfg` (the model's own when None) may differ from it in `remat`
+        and `remat_group` alone."""
+        cfg = cfg or self.cfg
+        enc_out = self.encode(batch_src, kv_chunk, cfg)
         x = self.embed_inputs(tgt_tokens)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for bp in self.dec:
-            x = bp(x, enc_out, positions, kv_chunk)
+        x = run_layers([lambda x, bp=bp: bp(x, enc_out, positions, kv_chunk)
+                        for bp in self.dec], x,
+                       remat_groups(cfg.n_layers_decoder, cfg.remat_group),
+                       cfg.scan_layers and self.remat(cfg))
         x = self.ln_f(x)
         aux = x.new_zeros((), dtype=torch.float32)
         if return_hidden:
@@ -140,7 +153,15 @@ def forward(params: EncDec, batch_src, tgt_tokens, cfg, kv_chunk: int = 512,
     """batch_src: (B, S_src, d) frame embeddings; tgt_tokens (B, S_tgt) ->
     (logits (B, S_tgt, padded_vocab), 0.0)."""
     check_model(params, cfg)
-    return params(batch_src, tgt_tokens, kv_chunk, return_hidden)
+    return params(batch_src, tgt_tokens, kv_chunk, return_hidden, cfg)
+
+
+def loss_fn(params: EncDec, batch, cfg, **_):
+    """The encoder on `batch["src_embeds"]` (B, S_src, d), then the
+    decoder's chunked cross-entropy (untied) on tokens/labels/mask."""
+    x, _ = forward(params, batch["src_embeds"], batch["tokens"], cfg,
+                   return_hidden=True)
+    return params.loss_of_hidden(x, batch)
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype, device=None,

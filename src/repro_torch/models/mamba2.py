@@ -1,11 +1,13 @@
 """Mamba-2 (SSD, state-space duality, arXiv:2405.21060): the ssm family.
 
-Port of `repro.models.mamba2`'s serving half: `init_params` returns a
-`Mamba2` module (embedding, a `ModuleList` of SSD blocks, the final norm,
-the unembedding unless tied), and `forward`, `init_state`, `prefill` and
+Port of `repro.models.mamba2`: `init_params` returns a `Mamba2` module
+(embedding, a `ModuleList` of SSD blocks, the final norm, the unembedding
+unless tied), and `forward`, `loss_fn`, `init_state`, `prefill` and
 `decode_step` keep the reference's signatures with that module in place
 of the params pytree (`models.convert` unstacks the reference's stacked
-blocks).  The training loss comes with the training slice.
+blocks).  While a graph is recorded the blocks run under the reference's
+two-level remat (`common.run_layers`), and `loss_fn` is the chunked
+cross-entropy of the hidden states after the prefix.
 
 Chunked SSD (`_ssd_chunked`): the sequence is split into chunks of length
 Q; within a chunk the output is the quadratic (attention-like) form with
@@ -14,7 +16,8 @@ carried in float32 by a loop over the chunks.  The reference's three-
 operand einsums are pairwise contractions here, so nothing of shape
 (B, nc, Q, Q, H, P) is formed, and the decay mask is applied before the
 exponential (exp of -inf is 0), so no inf is ever formed above the
-diagonal.  Decode is the O(1) recurrent update.  The state keeps the
+diagonal (so its gradient holds no inf x 0 either).  Decode is the O(1)
+recurrent update.  The state keeps the
 reference's layout, `{"conv": (n_layers, B, W-1, conv_dim)` in the
 activation dtype, `"ssd": (n_layers, B, H, P, N)` in float32`}`;
 `decode_step` writes it in place.
@@ -29,10 +32,12 @@ from torch import nn
 
 from ..device import resolve_device
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, _param,
-                     build, check_model, normal_, silu)
+                     build, check_model, normal_, remat_groups, run_layers,
+                     silu)
 
-__all__ = ["SSDBlock", "Mamba2", "init_params", "forward", "init_state",
-           "prefill", "decode_step", "ssd_params_per_layer", "MODEL"]
+__all__ = ["SSDBlock", "Mamba2", "init_params", "forward", "loss_fn",
+           "init_state", "prefill", "decode_step", "ssd_params_per_layer",
+           "MODEL"]
 
 
 def _dims(cfg):
@@ -103,7 +108,9 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
     xdt = xc * dtc[..., None]                         # (B,nc,Q,H,P)
     # diagonal (within-chunk) term: (G * L) over k, then against xdt
     G = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)       # (B,nc,Q,Q)
-    GL = L.mul_(G[..., None])                         # (B,nc,Q,Q,H)
+    # in place unless a graph is recorded (exp's backward needs L)
+    GL = L * G[..., None] if L.requires_grad or G.requires_grad \
+        else L.mul_(G[..., None])                     # (B,nc,Q,Q,H)
     y_diag = torch.einsum("bcqkh,bckhp->bcqhp", GL, xdt)
     # chunk states: the contribution of chunk c to the carried state
     decay_out = torch.exp(seg_end - cum)              # (B,nc,Q,H)
@@ -211,10 +218,15 @@ class Mamba2(LanguageModel):
         self.unembed = None if cfg.tie_embeddings else \
             Dense(cfg.d_model, cfg.padded_vocab, **kw)
 
-    def forward(self, tokens, prefix_embeds=None, return_hidden: bool = False):
+    def forward(self, tokens, prefix_embeds=None, return_hidden: bool = False,
+                cfg=None):
+        """`cfg` (the model's own when None) may differ from it in `remat`
+        and `remat_group` alone."""
+        cfg = cfg or self.cfg
         x = self.embed_inputs(tokens, prefix_embeds)
-        for bp in self.blocks:
-            x = bp(x)
+        x = run_layers(list(self.blocks), x,
+                       remat_groups(cfg.n_layers, cfg.remat_group),
+                       self.remat(cfg))
         x = self.ln_f(x)
         aux = x.new_zeros((), dtype=torch.float32)
         if return_hidden:
@@ -236,7 +248,16 @@ def forward(params: Mamba2, tokens, cfg, prefix_embeds=None,
             return_hidden: bool = False, **_):
     """tokens (B, S) -> (logits (B, S_total, padded_vocab), 0.0)."""
     check_model(params, cfg)
-    return params(tokens, prefix_embeds, return_hidden)
+    return params(tokens, prefix_embeds, return_hidden, cfg)
+
+
+def loss_fn(params: Mamba2, batch, cfg, **_):
+    """The chunked cross-entropy of the hidden states after the prefix
+    (batch as `transformer.loss_fn` takes it)."""
+    x, _ = forward(params, batch["tokens"], cfg,
+                   prefix_embeds=batch.get("prefix_embeds"),
+                   return_hidden=True)
+    return params.loss_of_hidden(x, batch)
 
 
 def init_state(cfg, batch: int, dtype, device=None) -> dict:

@@ -7,15 +7,21 @@ RG-LRU recurrence (per channel):
     a_t = exp(c * softplus(Lambda) * (-r_t))      # in (0,1), c = 8
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Port of `repro.models.rglru`'s serving half: `init_params` returns a
-`RecurrentGemma` module (embedding, a `ModuleList` of layers in layer
-order, the final norm, the unembedding unless tied), and `forward`,
+Port of `repro.models.rglru`: `init_params` returns a `RecurrentGemma`
+module (embedding, a `ModuleList` of layers in layer order, the final
+norm, the unembedding unless tied), and `forward`, `loss_fn`,
 `init_cache`, `prefill` and `decode_step` keep the reference's signatures
 with that module in place of the params pytree.  The reference stacks
 each pattern position's layers into a group for `lax.scan` and keeps the
 remainder as an unstacked tail; `models.convert` maps group p's slice g
 to layer g * len(pattern) + p and tail entry i to layer G * len(pattern)
-+ i, and `layer_params(params, cfg, i)` is layer i.
++ i, and `layer_params(params, cfg, i)` is layer i.  While a graph is
+recorded `forward` runs the reference's remat on that flat list: each
+pattern repeat (layers g * len(pattern) ... + len(pattern) - 1) is
+checkpointed and each layer in it, each tail layer is checkpointed, and
+each chunk of the recurrence is (the gates and the scan of one chunk live
+only while its backward runs).  `loss_fn` is the chunked cross-entropy of
+the hidden states after the prefix.
 
 Prefill runs the recurrence in chunks of 256 carrying a float32 boundary
 state, as the reference does; inside a chunk the reference's
@@ -24,7 +30,9 @@ products and sums for a chunk of 256; no cumulative product, which would
 underflow where a reaches ~4e-4).  The state carried out of the prompt is
 the state after its last real step: the reference's carries the padded
 steps past it when the prompt is longer than one chunk and not a whole
-number of them (ROADMAP R8).  Decode is the O(1) step.  The cache is the
+number of them (ROADMAP R8).  Under a recorded graph the scan's rounds
+and the carried state's fold are out of place (the same numbers).
+Decode is the O(1) step.  The cache is the
 reference's list in layer order: an attention layer's K/V ring of
 min(cache_len, window) slots (position p at slot p % ring), a recurrent
 layer's conv state (B, 3, w) in the activation dtype and LRU state (B, w)
@@ -35,16 +43,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import Attention
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, _param,
-                     build, check_model, normal_, silu)
+                     build, check_model, normal_, recording, run_layers,
+                     silu)
 from .mlp import GatedMLP
 
 __all__ = ["RecLayer", "AttnLayer", "RecurrentGemma", "init_params",
-           "layer_params", "forward", "init_cache", "prefill", "decode_step",
-           "LRU_C", "MODEL"]
+           "layer_params", "forward", "loss_fn", "init_cache", "prefill",
+           "decode_step", "LRU_C", "MODEL"]
 
 LRU_C = 8.0
 CONV_WIDTH = 4
@@ -83,13 +93,23 @@ def _linear_scan(a, b):
     """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0: the reference's
     `associative_scan` with (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2), as
     ceil(log2 T) doubling rounds (Hillis-Steele), each a product and a sum
-    over the whole chunk.  Overwrites a and b (b becomes h)."""
+    over the whole chunk.  Overwrites a and b (b becomes h) unless a graph
+    is recorded; then each round builds new tensors from the same
+    products and sums."""
     T = a.shape[1]
+    inplace = not (recording(a) or recording(b))
     off = 1
     while off < T:
-        b[:, off:] += a[:, off:] * b[:, :-off]
+        if inplace:
+            b[:, off:] += a[:, off:] * b[:, :-off]
+        else:
+            b = torch.cat([b[:, :off], b[:, off:] + a[:, off:] * b[:, :-off]],
+                          dim=1)
         if 2 * off < T:                  # the last round needs no a
-            a[:, off:] = a[:, off:] * a[:, :-off]
+            if inplace:
+                a[:, off:] = a[:, off:] * a[:, :-off]
+            else:
+                a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
     return b
 
@@ -132,7 +152,8 @@ class RecLayer(nn.Module):
         """xb (B, S, w), the conv'd branch input -> (y in xb's dtype,
         h_last float32).  One step from h0 when S == 1 and h0 is given;
         otherwise chunks of `chunk`, the carried state folded into each
-        chunk's first step (`b_0 += a_0 h`)."""
+        chunk's first step (`b_0 += a_0 h`), each chunk checkpointed while
+        a graph is recorded."""
         if xb.shape[1] == 1 and h0 is not None:
             a, b = self.gates(xb)
             h = a[:, 0] * h0 + b[:, 0]
@@ -141,14 +162,26 @@ class RecLayer(nn.Module):
         h = torch.zeros((B, w), dtype=torch.float32, device=xb.device) \
             if h0 is None else h0
         Q = min(chunk, S)
+        remat = recording(xb) or recording(self.lam)
         ys = []
         for j in range(0, S, Q):
-            aj, bj = self.gates(xb[:, j:j + Q])
-            bj[:, 0] += aj[:, 0] * h
-            hs = _linear_scan(aj, bj)
+            hs = checkpoint(self._chunk, xb[:, j:j + Q], h,
+                            use_reentrant=False) if remat \
+                else self._chunk(xb[:, j:j + Q], h)
             h = hs[:, -1]
             ys.append(hs.to(xb.dtype))
         return torch.cat(ys, dim=1), h
+
+    def _chunk(self, xj, h):
+        """The states of one chunk xj (B, T, w) from the carried h: the
+        gates, h folded into the first step (`b_0 += a_0 h`), the scan."""
+        aj, bj = self.gates(xj)
+        if recording(aj) or recording(h):
+            bj = torch.cat([bj[:, :1] + aj[:, :1] * h[:, None], bj[:, 1:]],
+                           dim=1)
+        else:
+            bj[:, 0] += aj[:, 0] * h
+        return _linear_scan(aj, bj)
 
     def forward(self, x, conv_state=None, lru_state=None):
         """The reference's `_rec_apply`: (out) or, with a conv state,
@@ -209,15 +242,28 @@ class RecurrentGemma(LanguageModel):
             Dense(cfg.d_model, cfg.padded_vocab, **kw)
 
     def forward(self, tokens, prefix_embeds=None, kv_chunk: int = 512,
-                return_hidden: bool = False):
+                return_hidden: bool = False, cfg=None):
+        """`cfg` (the model's own when None) may differ from it in `remat`
+        and `remat_group` alone."""
+        cfg = cfg or self.cfg
         x = self.embed_inputs(tokens, prefix_embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for layer in self.layers:
+
+        def layer_fn(layer):
             if isinstance(layer, RecLayer):
-                x = layer(x)
-            else:
+                return layer
+
+            def f(x):
                 x = x + layer.attn(layer.ln1(x), positions, kv_chunk=kv_chunk)
-                x = layer.ffn(x)
+                return layer.ffn(x)
+            return f
+
+        G, tail_n = _group_split(cfg)
+        plen = len(cfg.recurrent.pattern)
+        groups = [list(range(g * plen, (g + 1) * plen)) for g in range(G)] \
+            + [[G * plen + i] for i in range(tail_n)]
+        x = run_layers([layer_fn(layer) for layer in self.layers], x, groups,
+                       self.remat(cfg))
         x = self.ln_f(x)
         aux = x.new_zeros((), dtype=torch.float32)
         if return_hidden:
@@ -245,7 +291,16 @@ def forward(params: RecurrentGemma, tokens, cfg, prefix_embeds=None,
             kv_chunk: int = 512, return_hidden: bool = False):
     """tokens (B, S) -> (logits (B, S_total, padded_vocab), 0.0)."""
     check_model(params, cfg)
-    return params(tokens, prefix_embeds, kv_chunk, return_hidden)
+    return params(tokens, prefix_embeds, kv_chunk, return_hidden, cfg)
+
+
+def loss_fn(params: RecurrentGemma, batch, cfg, **_):
+    """The chunked cross-entropy of the hidden states after the prefix
+    (batch as `transformer.loss_fn` takes it)."""
+    x, _ = forward(params, batch["tokens"], cfg,
+                   prefix_embeds=batch.get("prefix_embeds"),
+                   return_hidden=True)
+    return params.loss_of_hidden(x, batch)
 
 
 def _ring(cfg, cache_len: int) -> int:

@@ -1,16 +1,19 @@
 """Decoder-only transformer assembly (dense + MoE families, VLM prefix).
 
-Port of `repro.models.transformer`'s serving half: `init_params` returns a
+Port of `repro.models.transformer`: `init_params` returns a
 `Transformer` module (embedding, a `ModuleList` of blocks, the final norm,
-the unembedding unless tied), and `forward`, `init_cache`, `prefill` and
-`decode_step` keep the reference's signatures with that module in place
-of the params pytree.  The reference stacks its blocks for `lax.scan`;
-here they are a list, run one after the other (`models.convert` unstacks
-the reference's).  The KV cache keeps the reference's layout, `{"k", "v"}`
-of shape (n_layers, B, cache_len, n_kv, hd), in ring order (position p at
-slot p % cache_len); `decode_step` writes the new token's K/V into it in
-place.  Logits span `padded_vocab`, in float32 (tied: through the
-embedding table).  The training loss comes with the training slice.
+the unembedding unless tied), and `forward`, `loss_fn`, `init_cache`,
+`prefill` and `decode_step` keep the reference's signatures with that
+module in place of the params pytree.  The reference stacks its blocks
+for `lax.scan`; here they are a list, run one after the other
+(`models.convert` unstacks the reference's), with the reference's
+two-level remat (`common.run_layers`) while a graph is recorded and the
+config scans its layers.  The KV cache keeps the reference's layout,
+`{"k", "v"}` of shape (n_layers, B, cache_len, n_kv, hd), in ring order
+(position p at slot p % cache_len); `decode_step` writes the new token's
+K/V into it in place.  Logits span `padded_vocab`, in float32 (tied: through the
+embedding table).  `loss_fn` is the chunked cross-entropy of the hidden
+states after the prefix plus 0.01 x the MoE's auxiliary loss.
 """
 from __future__ import annotations
 
@@ -20,11 +23,11 @@ from torch import nn
 from ..device import resolve_device
 from .attention import Attention
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, build,
-                     check_model)
+                     check_model, remat_groups, run_layers)
 from .mlp import GatedMLP, MoE
 
-__all__ = ["Block", "Transformer", "init_params", "forward", "init_cache",
-           "prefill", "decode_step", "MODEL"]
+__all__ = ["Block", "Transformer", "init_params", "forward", "loss_fn",
+           "init_cache", "prefill", "decode_step", "MODEL"]
 
 
 class Block(nn.Module):
@@ -66,15 +69,26 @@ class Transformer(LanguageModel):
             Dense(cfg.d_model, cfg.padded_vocab, **kw)
 
     def forward(self, tokens, prefix_embeds=None, kv_chunk: int = 512,
-                return_hidden: bool = False):
-        cfg = self.cfg
+                return_hidden: bool = False, cfg=None):
+        """`cfg` (the model's own when None) may differ from it in `remat`
+        and `remat_group` alone."""
+        cfg = cfg or self.cfg
         x = self.embed_inputs(tokens, prefix_embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        aux_total = x.new_zeros((), dtype=torch.float32)
-        for bp in self.blocks:
-            x = x + bp.attn(bp.ln1(x), positions, kv_chunk=kv_chunk)
-            m, a = bp.ffn(bp.ln2(x))
-            x, aux_total = x + m, aux_total + a
+
+        def block_fn(bp):
+            def f(carry):
+                x, aux = carry
+                x = x + bp.attn(bp.ln1(x), positions, kv_chunk=kv_chunk)
+                m, a = bp.ffn(bp.ln2(x))
+                return x + m, aux + a
+            return f
+
+        x, aux_total = run_layers(
+            [block_fn(bp) for bp in self.blocks],
+            (x, x.new_zeros((), dtype=torch.float32)),
+            remat_groups(cfg.n_layers, cfg.remat_group),
+            cfg.scan_layers and self.remat(cfg))
         x = self.ln_f(x)
         if return_hidden:
             return x, aux_total
@@ -96,7 +110,17 @@ def forward(params: Transformer, tokens, cfg, prefix_embeds=None,
             kv_chunk: int = 512, return_hidden: bool = False):
     """tokens (B, S) -> (logits (B, S_total, padded_vocab), aux)."""
     check_model(params, cfg)
-    return params(tokens, prefix_embeds, kv_chunk, return_hidden)
+    return params(tokens, prefix_embeds, kv_chunk, return_hidden, cfg)
+
+
+def loss_fn(params: Transformer, batch, cfg, kv_chunk: int = 512):
+    """batch: {tokens (B, S), labels (B, S), mask (B, S)} (+ prefix_embeds
+    (B, P, d)), numpy arrays or tensors -> the float32 loss: the chunked
+    cross-entropy of the hidden states after the prefix + 0.01 x aux."""
+    x, aux = forward(params, batch["tokens"], cfg,
+                     prefix_embeds=batch.get("prefix_embeds"),
+                     kv_chunk=kv_chunk, return_hidden=True)
+    return params.loss_of_hidden(x, batch) + 0.01 * aux
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype, device=None) -> dict:

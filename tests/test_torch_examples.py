@@ -1,10 +1,11 @@
-"""The port's four examples (`examples/torch_*.py`) run on the CPU.
+"""The port's examples (`examples/torch_*.py`) run on the CPU.
 
 Each example's `main(argv)` runs with `--device cpu` at a small scale and
 returns what it printed; the checks are the examples' own (answers against
 the float64 oracle `solve_csr_seq`, PCG converged in fewer iterations
 than plain CG, value updates that keep the residual at float64's level,
-a drifted pattern refused, the code size of the transformed systems).
+a drifted pattern refused, the code size of the transformed systems, the
+LM's loss lower after a simulated failure and a restart).
 Tolerances: refined solves within 1e-10 of the oracle (relative to 1), the
 float32 gradient within 1e-5 relative to max|g|, float32 unrefined sweeps
 within 1e-4 relative to max|x|.  On a card the same mains run in
@@ -70,3 +71,14 @@ def test_transform_study_on_the_cpu(capsys):
         assert row["code_MB"] > 0, (name, strategy)
         assert row["err"] < 1e-4, (name, strategy)
     assert "code" in capsys.readouterr().out
+
+
+def test_train_lm_on_the_cpu(capsys):
+    out = _main("train_lm")(["--device", "cpu", "--steps", "24",
+                             "--batch", "4", "--seq", "32"])
+    assert out["resumed_last"] < out["first"]
+    # checkpoints every 4 steps, a failure after step 11: the restart
+    # resumes from the one saved after step 8 and runs steps 9-23
+    assert out["resumed_steps"] == 15
+    text = capsys.readouterr().out
+    assert "resumed from step" in text and "OK: loss improved" in text

@@ -41,9 +41,10 @@ def _blocked(name: str) -> bool:
 
 
 def test_the_four_examples_are_scanned():
+    """The port's examples, five since the training one came."""
     assert [p.name for p in EXAMPLES] == [
         "torch_pcg_ic0.py", "torch_quickstart.py", "torch_timestepping.py",
-        "torch_transform_study.py"]
+        "torch_train_lm.py", "torch_transform_study.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -86,7 +87,13 @@ print(len(names))
                  "repro_torch.obs.profile", "repro_torch.obs.calibrate",
                  "repro_torch.solver.api", "repro_torch.core.codegen",
                  "repro_torch.sparse.io", "repro_torch.models.mamba2",
-                 "repro_torch.models.rglru", "repro_torch.models.encdec"):
+                 "repro_torch.models.rglru", "repro_torch.models.encdec",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.data", "repro_torch.train.checkpoint",
+                 "repro_torch.train.compression",
+                 "repro_torch.train.resilience",
+                 "repro_torch.train.train_step",
+                 "repro_torch.launch.train"):
         assert name in imported, name
 
 
