@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--sweep] [--ab DIR ...] [--only sptrsv|spmv]
     python3 chip_smoke.py --sharded-rank RANK STORE OUT     (phase 11's own)
     python3 chip_smoke.py --mesh-serve-rank RANK STORE OUT  (phase 12's own)
+    python3 chip_smoke.py --mesh-train-rank RANK STORE OUT  (phase 16's own)
 
 Run from the repository root on a machine with a CUDA card (it puts
 `src/` on `sys.path` itself).  Phases, in order; any failure exits
@@ -303,11 +304,33 @@ non-zero:
    NaN rolls back to the checkpoint saved after step 20 and the run ends
    finite.  (4) `examples/torch_train_lm.py` with --steps 48 --batch 4
    --seq 64.  The phase prints its seconds.
-16. The kernels line and the contract line.
+16. LM training under a mesh (`train.sharding`, `train.meshctx`,
+   `train_step.place_state`, DTensor placements); like phases 14 and 15
+   it runs none of K1-K4, and its launch count of each is 0.  (a) An NCCL
+   world of one on a `HashStore` and its (1, 1) `DeviceMesh`:
+   internlm2-1.8b as phase 15 (2) trains it (bf16, batch 4 x 1,024,
+   remat groups of 4, the same seed, batches and AdamW), one state placed
+   by the plan and one not, 4 steps each in turns: the placed losses
+   within 1e-3 relative of phase 15's and of the unplaced ones (and the
+   grad norms of the unplaced ones); ms a step of both (median of steps
+   2-3), the peak memory with both states resident and each step's own
+   peak, and from `torch.profiler` over the 4th placed step the device's
+   busy share and its top six ops.  (b) Two gloo ranks on cuda:0, each a process of its own
+   (`python3 chip_smoke.py --mesh-train-rank RANK STORE OUT`): each first
+   tries, on CUDA tensors, the collectives a placed step can issue
+   (all-gather, reduce-scatter, all-reduce, all-to-all); a collective
+   that gloo refuses is printed with its error, and the rest of (b) is
+   cut.  Else the reduced internlm2 and granite-moe in float32 on the
+   meshes (2, 1) and (1, 2), 3 steps of batch 4 x 32: each rank's losses
+   within 1e-5 relative of the one-device run's on the card, the ranks'
+   gathered parameters bitwise equal.  The card holds one GPU: no
+   multi-card mesh and no NVLink traffic runs here.  The phase prints its
+   seconds.
+17. The kernels line and the contract line.
 
 Operators' disk entries go to a temporary directory that the script
 removes at its end.  Full results go to chiprun_out/chip_smoke.json.
-With `--sweep` or `--ab`, phases 3-15 give way to studies of the SpTRSV
+With `--sweep` or `--ab`, phases 3-16 give way to studies of the SpTRSV
 kernel on lung2's and torso2's L and IC(0) L^T (R = 1, 8) and of K4 on
 phase 3's systems, written to chiprun_out/chip_smoke_study.json
 (`--only sptrsv` or `--only spmv` keeps one of the two): `--sweep` times
@@ -4829,10 +4852,382 @@ def phase_train() -> tuple:
     return res, counts
 
 
+# -- phase 16: LM training under a mesh --------------------------------------
+
+# (a) internlm2-1.8b as phase 15 trains it (bf16, batch 4 x 1,024, remat
+# groups of 4, AdamW as `launch.train.main` builds it for --steps 8, the
+# same batches), placed on the (1, 1) DeviceMesh of an NCCL world of one,
+# in turns with the unplaced step on a state of its own: 4 steps each
+# (ms of steps 2-3; the 4th placed step under the profiler);
+# the placed losses and grad norms within 1e-3 relative of phase 15's and
+# of the unplaced ones (phase 15's remat check's bound on a bf16 grad
+# norm: the same math, the sums in another order)
+MESH_FULL_STEPS = 4
+MESH_FULL_RTOL = 1e-3
+# (b) two gloo ranks on cuda:0, each a process of its own, the reduced
+# internlm2 and granite-moe in float32 on the meshes (2, 1) and (1, 2), 3
+# steps of batch 4 x 32: each rank's losses within 1e-5 relative of the
+# one-device run's on the card, the ranks' gathered parameters bitwise
+# equal.  First each rank tries the collectives a placed step can issue
+# on CUDA tensors (DTensor's all-gather, reduce-scatter, all-reduce and
+# all-to-all); one that gloo refuses is printed with its error, and the
+# rest of (b) is cut
+MESH_RANK_ARCHS = ("internlm2-1.8b", "granite-moe-1b-a400m")
+MESH_RANK_MESHES = ((2, 1), (1, 2))
+MESH_RANK_SHAPE = (4, 32)               # batch, sequence
+MESH_RANK_STEPS = 3
+MESH_RANK_RTOL = 1e-5
+MESH_RANK_TIMEOUT_S = 300
+MESH_COLLECTIVE_TIMEOUT_S = 120
+PROBE_MARK = "phase16-probe:"
+
+
+def mesh_full(phase15: dict) -> dict:
+    """(a) internlm2-1.8b placed on the (1, 1) mesh of an NCCL world of
+    one, in turns with the unplaced step."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train import meshctx
+    from repro_torch.train.train_step import place_state, placed
+    arch, B, S, steps = TRAIN_FULL
+    cfg = get_config(arch)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        states = {"plain": init_state(SEED, cfg, device=DEVICE),
+                  "placed": place_state(init_state(SEED, cfg,
+                                                   device=DEVICE), mesh)}
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(placed(states["placed"]) and not placed(states["plain"]),
+              "place_state did not place the state")
+        data = train_data(cfg, S, B)
+        opt = AdamWConfig(total_steps=steps,
+                          warmup_steps=max(10, steps // 20))
+        step_fn = make_train_step(cfg, opt)
+        out = {k: {"losses": [], "grad_norms": [], "step_ms": [],
+                   "peak_step_gb": []} for k in states}
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(MESH_FULL_STEPS):
+            order = ["plain", "placed"] if i % 2 == 0 else ["placed",
+                                                              "plain"]
+            batch = data.batch_at(i)
+            for k in order:
+                ctx = meshctx.mesh_context(mesh, ("data",)) \
+                    if k == "placed" else contextlib.nullcontext()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                with ctx:
+                    if k == "placed" and i == MESH_FULL_STEPS - 1:
+                        # where the placed step's time goes: the last one
+                        # under the profiler (its ms not counted)
+                        (states[k], met), prof = profiled(
+                            lambda: step_fn(states[k], batch))
+                    else:
+                        states[k], met = step_fn(states[k], batch)
+                loss = float(met["loss"])
+                torch.cuda.synchronize()
+                out[k]["step_ms"].append((time.perf_counter() - t) * 1e3)
+                out[k]["peak_step_gb"].append(
+                    (torch.cuda.max_memory_allocated() - base) / 1e9)
+                out[k]["losses"].append(loss)
+                out[k]["grad_norms"].append(float(met["grad_norm"]))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        resident_gb = torch.cuda.memory_allocated() / 1e9
+        del states
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for k in out:         # steps 2 to the last but one: not the first's
+        out[k]["ms"] = float(np.median(out[k]["step_ms"][1:-1]))  # warm-up
+    dev_ms = sum(prof.values())
+    out["placed"]["profiled_device_ms"] = dev_ms
+    out["placed"]["busy_share"] = dev_ms / out["placed"]["ms"]
+    out["placed"]["top_ops"] = top_kernels(prof, 6)
+    want = phase15["losses"][:MESH_FULL_STEPS]
+    res = {"arch": arch, "batch": B, "seq": S, "steps": MESH_FULL_STEPS,
+           "init_s_both": init_s, **out,
+           "phase15_losses": want, "peak_gb_both_states": peak_gb,
+           "resident_gb_both_states": resident_gb,
+           "placed_vs_plain_ms": out["placed"]["ms"] / out["plain"]["ms"]}
+    res["loss_rel_vs_phase15"] = max(
+        abs(a - b) / abs(b) for a, b in zip(out["placed"]["losses"], want))
+    res["loss_rel_vs_plain"] = max(
+        abs(a - b) / abs(b) for a, b in zip(out["placed"]["losses"],
+                                             out["plain"]["losses"]))
+    res["gnorm_rel_vs_plain"] = max(
+        abs(a - b) / abs(b) for a, b in zip(out["placed"]["grad_norms"],
+                                             out["plain"]["grad_norms"]))
+    log(f"  (a) {arch} bf16 on the (1, 1) mesh of an NCCL world of one, "
+        f"batch {B} x {S}, in turns with the unplaced step: placed losses "
+        f"{[f'{x:.4f}' for x in out['placed']['losses']]}, unplaced "
+        f"{[f'{x:.4f}' for x in out['plain']['losses']]}, phase 15's "
+        f"{[f'{x:.4f}' for x in want]}; rel vs phase 15 "
+        f"{res['loss_rel_vs_phase15']:.3e}, vs unplaced loss "
+        f"{res['loss_rel_vs_plain']:.3e} grad norm "
+        f"{res['gnorm_rel_vs_plain']:.3e}")
+    log(f"      ms a step (median of steps 2-{MESH_FULL_STEPS - 1}): placed "
+        f"{out['placed']['ms']:.1f} {[f'{x:.1f}' for x in out['placed']['step_ms']]}"
+        f", unplaced {out['plain']['ms']:.1f} "
+        f"{[f'{x:.1f}' for x in out['plain']['step_ms']]} "
+        f"(x{res['placed_vs_plain_ms']:.3f}); peak {peak_gb:.2f} GB with "
+        f"both states resident ({resident_gb:.2f} GB after), a step's "
+        f"own peak: placed {max(out['placed']['peak_step_gb']):.2f} GB, "
+        f"unplaced {max(out['plain']['peak_step_gb']):.2f} GB; the two "
+        f"states drawn and placed in {init_s:.1f} s")
+    log(f"      profiled placed step {MESH_FULL_STEPS}: device busy "
+        f"{dev_ms:.1f} ms of {out['placed']['ms']:.1f} "
+        f"({out['placed']['busy_share']:.3f}; phase 15's step "
+        f"{phase15['profiled_device_ms']:.1f} ms), top "
+        f"{out['placed']['top_ops']}")
+    check(all(math.isfinite(x) for k in out for x in out[k]["losses"]),
+          f"a loss is not finite: {res}")
+    check(res["loss_rel_vs_phase15"] <= MESH_FULL_RTOL
+          and res["loss_rel_vs_plain"] <= MESH_FULL_RTOL
+          and res["gnorm_rel_vs_plain"] <= MESH_FULL_RTOL,
+          f"the placed step is off the unplaced one: {res}")
+    return res
+
+
+def mesh_collectives(mesh) -> dict:
+    """{collective: "" or its error} of the collectives a placed step can
+    issue, on CUDA tensors of this rank's gloo world: the process group's
+    own (c10d) and the functional ones that DTensor's redistributions
+    call (funcol, waited on)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    group = mesh.get_group(0)
+    n = dist.get_world_size(group)
+    x = torch.arange(4 * n, dtype=torch.float32, device="cuda")
+
+    def tries():
+        yield "c10d.all_gather_into_tensor", \
+            lambda: dist.all_gather_into_tensor(
+                torch.empty(4 * n * n, device="cuda"), x, group=group)
+        yield "c10d.all_reduce", lambda: dist.all_reduce(x.clone(),
+                                                         group=group)
+        yield "c10d.reduce_scatter_tensor", \
+            lambda: dist.reduce_scatter_tensor(
+                torch.empty(4, device="cuda"), x, group=group)
+        yield "c10d.all_to_all_single", lambda: dist.all_to_all_single(
+            torch.empty_like(x), x, group=group)
+        yield "funcol.all_gather_tensor", lambda: fc.wait_tensor(
+            fc.all_gather_tensor(x, 0, group))
+        yield "funcol.all_reduce", lambda: fc.wait_tensor(
+            fc.all_reduce(x, "sum", group))
+        yield "funcol.reduce_scatter_tensor", lambda: fc.wait_tensor(
+            fc.reduce_scatter_tensor(x, "sum", 0, group))
+        yield "funcol.all_to_all_single", lambda: fc.wait_tensor(
+            fc.all_to_all_single(x, None, None, group))
+    out = {}
+    for name, fn in tries():
+        # a collective that kills the process names itself in the log
+        print(f"{PROBE_MARK} trying {name}", flush=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = ""
+        except Exception as e:      # noqa: BLE001 - the probe's answer
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+        print(f"{PROBE_MARK} done {name} {out[name] or 'ok'}", flush=True)
+    return out
+
+
+def probe_log(text: str, code: int) -> dict:
+    """The probe's answers from a rank's log, when the rank died: the
+    collectives done (with their errors), the one it died in, and those
+    not tried."""
+    out, tried = {}, []
+    for ln in text.splitlines():
+        if ln.startswith(PROBE_MARK + " trying"):
+            tried.append(ln.split()[-1])
+        elif ln.startswith(PROBE_MARK + " done"):
+            name, _, err = ln[len(PROBE_MARK) + 6:].partition(" ")
+            out[name] = "" if err == "ok" else err
+    for name in tried:
+        if name not in out:
+            out[name] = (f"the rank died (exit code {code}) inside gloo's "
+                         f"{name} on CUDA tensors; what follows was not "
+                         f"tried")
+    return out
+
+
+def mesh_train_rank(rank: int, store: str, out: str) -> int:
+    """One of phase 16's two gloo ranks on cuda:0, in a process of its
+    own: the collectives' probe, then (when gloo takes them all) the
+    reduced configs' placed steps on both meshes; answers to `out`
+    (.json, and .npz of the gathered parameters)."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import (AdamWConfig, init_state, make_train_step,
+                                   meshctx)
+    from repro_torch.train.train_step import place_state
+    import faulthandler
+    faulthandler.enable()           # a crash in a collective names its line
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    res, arrays = {}, {}
+    try:
+        res["collectives"] = mesh_collectives(
+            init_device_mesh("cuda", (2,), mesh_dim_names=("data",)))
+        if not any(res["collectives"].values()):
+            for arch in MESH_RANK_ARCHS:
+                cfg = get_reduced(arch)
+                data = train_data(cfg, MESH_RANK_SHAPE[1],
+                                  MESH_RANK_SHAPE[0])
+                for shape in MESH_RANK_MESHES:
+                    key = f"{arch}/{shape[0]}x{shape[1]}"
+                    mesh = init_device_mesh("cuda", shape,
+                                            mesh_dim_names=("data", "model"))
+                    state = place_state(init_state(SEED, cfg, device="cuda"),
+                                        mesh)
+                    step = make_train_step(cfg, AdamWConfig())
+                    losses, t0 = [], time.perf_counter()
+                    with meshctx.mesh_context(mesh, ("data",)):
+                        for i in range(MESH_RANK_STEPS):
+                            state, met = step(state, data.batch_at(i))
+                            losses.append(float(met["loss"]))
+                    res[key] = {"losses": losses,
+                                "seconds": time.perf_counter() - t0,
+                                "local": {n: list(p.to_local().shape) for n, p
+                                          in state["params"].named_parameters()}}
+                    for n, p in state["params"].named_parameters():
+                        arrays[f"{key}/{n}"] = \
+                            p.full_tensor().detach().cpu().numpy()
+    finally:
+        dist.destroy_process_group()
+    np.savez(out + ".npz", **arrays)
+    Path(out + ".json").write_text(json.dumps(res))
+    return 0
+
+
+def mesh_two_ranks(tmp: Path) -> dict:
+    """(b) Phase 16's two gloo ranks on the one card (`--mesh-train-rank`),
+    held against the one-device run on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    store = tmp / "store"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-train-rank",
+         str(r), str(store), str(tmp / f"rank{r}")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=MESH_RANK_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    died = {}
+    for proc, text in zip(procs, logs):
+        probe = probe_log(text, proc.returncode) if proc.returncode else {}
+        check(proc.returncode == 0 or any(probe.values()),
+              f"a phase 16 gloo rank on the card exited {proc.returncode}: "
+              f"{text[-3000:]}")
+        died.update(probe)
+    if died:
+        res = {"collectives": died, "ranks_s": time.perf_counter() - t0}
+    else:
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        params = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+        res = {"collectives": ranks[0]["collectives"],
+               "ranks_s": time.perf_counter() - t0}
+    refused = {k: v for k, v in res["collectives"].items() if v}
+    if refused:
+        log(f"  (b) gloo's collectives on CUDA tensors: "
+            f"{json.dumps(res['collectives'])}")
+        for name, err in refused.items():
+            log(f"  (b) cut: gloo refuses {name} on CUDA tensors: {err}")
+        res["cut"] = sorted(refused)
+        return res
+    check(set(params[0]) == set(params[1]) and all(
+        np.array_equal(params[0][k], params[1][k]) for k in params[0]),
+        "the two ranks' gathered parameters differ")
+    res["cases"] = {}
+    for arch in MESH_RANK_ARCHS:
+        cfg = get_reduced(arch)
+        data = train_data(cfg, MESH_RANK_SHAPE[1], MESH_RANK_SHAPE[0])
+        state = init_state(SEED, cfg, device=DEVICE)
+        step = make_train_step(cfg, AdamWConfig())
+        want = []
+        for i in range(MESH_RANK_STEPS):
+            state, met = step(state, data.batch_at(i))
+            want.append(float(met["loss"]))
+        ref = {n: p.detach().cpu().numpy()
+               for n, p in state["params"].named_parameters()}
+        for shape in MESH_RANK_MESHES:
+            key = f"{arch}/{shape[0]}x{shape[1]}"
+            got = [r[key]["losses"] for r in ranks]
+            rel = max(abs(a - b) / abs(b) for g in got
+                      for a, b in zip(g, want))
+            perr = max(float(np.abs(params[0][f"{key}/{n}"] - w).max())
+                       / max(float(np.abs(w).max()), 1e-30)
+                       for n, w in ref.items())
+            res["cases"][key] = {"losses": got[0], "one_device": want,
+                                 "loss_rel": rel, "param_rel": perr,
+                                 "seconds": ranks[0][key]["seconds"]}
+            log(f"  (b) {key} on 2 gloo ranks of cuda:0: losses "
+                f"{[f'{x:.6f}' for x in got[0]]} (one device "
+                f"{[f'{x:.6f}' for x in want]}, rel {rel:.2e}; parameters "
+                f"{perr:.2e} of their largest), {ranks[0][key]['seconds']:.1f}"
+                f" s, ranks bitwise equal")
+            check(rel <= MESH_RANK_RTOL and got[0] == got[1],
+                  f"{key}: the ranks' losses are off the one-device run's: "
+                  f"{got} vs {want}")
+    return res
+
+
+def phase_mesh_train(phase15: dict) -> tuple:
+    """LM training under a mesh on the card.  Returns (result, launch
+    counts of K1-K4 in this phase: all 0)."""
+    import tempfile
+    from repro_torch.kernels import spmv_ell as S
+    from repro_torch.kernels import sptrsv_level as K
+    K.reset_launch_counts()
+    S.reset_launch_counts()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    try:
+        t0 = time.perf_counter()
+        res = {"full": mesh_full(phase15)}
+        res["full"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-mesh-") as tmp:
+            res["two_ranks"] = mesh_two_ranks(Path(tmp))
+        res["two_ranks"]["seconds"] = time.perf_counter() - t0
+        log(f"  (a) {res['full']['seconds']:.1f} s, (b) "
+            f"{res['two_ranks']['seconds']:.1f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    counts = dict(K.LAUNCHES)
+    counts.update(S.LAUNCHES)
+    check(not any(counts.values()),
+          f"training under a mesh launched a SpTRSV or SpMV kernel: "
+          f"{counts}")
+    return res, counts
+
+
 def kernels_line(krows: list, *path_counts: dict,
                  served_err: dict | None = None) -> dict:
     """One entry per ported kernel, its timings at a main-path shape; its
-    launches summed over the main paths (phases 4 to 15)."""
+    launches summed over the main paths (phases 4 to 16)."""
     from repro_torch.kernels import spmv_ell as S
     from repro_torch.kernels import sptrsv_level as K
     here = "src/repro_torch/kernels/csrc/"
@@ -4892,6 +5287,10 @@ def main(argv=None) -> int:
                     metavar=("RANK", "STORE", "OUT"),
                     help="run one of phase 12's two gloo serving ranks "
                          "(started by phase 12 itself)")
+    ap.add_argument("--mesh-train-rank", nargs=3,
+                    metavar=("RANK", "STORE", "OUT"),
+                    help="run one of phase 16's two gloo training ranks "
+                         "(started by phase 16 itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4903,6 +5302,9 @@ def main(argv=None) -> int:
     if args.mesh_serve_rank:
         rank, store, out = args.mesh_serve_rank
         return mesh_serve_rank(int(rank), store, out)
+    if args.mesh_train_rank:
+        rank, store, out = args.mesh_train_rank
+        return mesh_train_rank(int(rank), store, out)
     # the operators' disk cache goes to a directory of this run's own,
     # removed at its end; phase 6 leaves its tuned torso2 operator in
     # `tuned_dir` for phase 7's new process
@@ -5001,10 +5403,15 @@ def run(args, tuned_dir: str) -> int:
     train, train_counts = phase_train()
     train["seconds"] = time.perf_counter() - t15
     log(f"  phase 15 took {train['seconds']:.1f} s")
+    log("== 16. LM training under a mesh")
+    t16 = time.perf_counter()
+    mtrain, mtrain_counts = phase_mesh_train(train["full"])
+    mtrain["seconds"] = time.perf_counter() - t16
+    log(f"  phase 16 took {mtrain['seconds']:.1f} s")
     line = kernels_line(krows, counts, pcg_counts, tune_counts, life_counts,
                         serve_counts, static_counts, resil_counts,
                         shard_counts, mserve_counts, example_counts,
-                        lm_counts, train_counts,
+                        lm_counts, train_counts, mtrain_counts,
                         served_err=serve["kernels_vs_plain_max_abs_err"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -5021,7 +5428,8 @@ def run(args, tuned_dir: str) -> int:
          "mesh_service_launches": mserve_counts, "examples": examples,
          "examples_launches": example_counts, "lm": lm,
          "lm_launches": lm_counts, "train": train,
-         "train_launches": train_counts, "code_size": code_size,
+         "train_launches": train_counts, "mesh_train": mtrain,
+         "mesh_train_launches": mtrain_counts, "code_size": code_size,
          "kernels_line": line,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

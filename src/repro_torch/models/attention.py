@@ -13,8 +13,10 @@ later work, measured against this one).  Supports:
 
 Masked scores are NEG_INF = -1e30 (not -inf) and the normalizer is clamped
 at 1e-30, as in the reference, so fully masked padded rows stay finite.
-The reference pads heads to its mesh's model axis; without a mesh that is
-the identity, so nothing here pads heads.
+Under a mesh (DTensor inputs) the online softmax runs on each rank's
+local (batch rows, heads) blocks (`_chunked_attn`); the reference pads
+heads to its mesh's model axis, and here a head count that the model
+axis does not divide is computed whole on every rank of that axis.
 """
 from __future__ import annotations
 
@@ -35,8 +37,33 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def _chunked_attn(q, k, v, *, causal: bool, window: int, q_offset: int,
-                  kv_chunk: int = 512, q_chunk: int = 512) -> torch.Tensor:
+def _chunked_attn(q, k, v, **kw) -> torch.Tensor:
+    """`_attn` of q, k, v (B, S, heads, hd); of DTensors, on local blocks.
+
+    The online softmax is local to each (batch row, head), and DTensor's
+    einsum decomposition views a permuted local block whose layout its
+    global strides misstate, so under DTensor q, k and v are anchored
+    (batch over the data axes, heads over "model" when the model axis
+    divides both head counts, else the heads are replicated) and
+    `_attn` runs on each rank's local blocks (`meshctx.Local`); a q head
+    of a local block reads the kv heads of the same block (head h reads
+    kv head h // G, and both counts split evenly).  The reference pads
+    odd head counts to the model axis instead; here they are computed
+    whole on every rank of the model axis."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return _attn(q, k, v, **kw)
+    from ..train.meshctx import Local, constrain_batch, model_axis_size
+    msz = model_axis_size()
+    split = q.shape[2] % msz == 0 and k.shape[2] % msz == 0
+    md = 2 if split else None
+    q, k, v = (constrain_batch(t, 0, model_dim=md) for t in (q, k, v))
+    blk = Local(q, dims=(0, 2) if split else (0,))
+    return blk.wrap(_attn(blk.x, blk.local(k), blk.local(v), **kw), q.shape)
+
+
+def _attn(q, k, v, *, causal: bool, window: int, q_offset: int,
+          kv_chunk: int = 512, q_chunk: int = 512) -> torch.Tensor:
     """Online-softmax attention, chunked over both q and kv.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, K, hd) with H % K == 0.  K/V are

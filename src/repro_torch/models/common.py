@@ -23,7 +23,12 @@ Conventions, as in the reference:
     the caller asks for the host, "meta" for shapes alone);
   * parameters are built frozen (`requires_grad=False`), so serving
     records no graph; `train.init_state` turns on the gradients of the
-    model it trains.
+    model it trains;
+  * under a mesh (`train.train_step.place_state`: DTensor parameters) the
+    ops run on DTensors; the few that DTensor has no working rule for
+    (the embedding lookup and the gold logit over a vocabulary that the
+    model axis shards, the float32-output product of the bf16 loss
+    logits) run on local blocks and say so where they do.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from ..device import resolve_device
 
 __all__ = ["DTYPES", "Dense", "RMSNorm", "Embedding", "LanguageModel",
            "build", "check_model", "on_device", "float32_product", "rope",
+           "rms_norm",
            "gelu", "silu", "normal_", "softmax_xent", "lm_loss_chunked",
            "remat_groups", "run_layers", "recording"]
 
@@ -89,10 +95,16 @@ class RMSNorm(nn.Module):
         self.scale = _param(torch.ones((d,), device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        var = x32.square().mean(dim=-1, keepdim=True)
-        y = x32 * torch.rsqrt(var + self.eps) * self.scale.float()
-        return y.to(x.dtype)
+        return rms_norm(x, self.scale, self.eps)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """RMSNorm of x over its last dim with `scale`, in float32, cast back
+    to x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps) * scale.float()
+    return y.to(x.dtype)
 
 
 class Embedding(nn.Module):
@@ -104,7 +116,93 @@ class Embedding(nn.Module):
                                 generator=generator))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if isinstance(self.w, DTensor):
+            return _local_embedding(ids, self.w)
         return F.embedding(ids, self.w)
+
+
+def _block(w, wp, xp):
+    """w's local block under the placements wp, for a product with an
+    activation whose rows (dim 0) are sharded as in xp: the block's
+    gradient is a partial sum over the mesh dimensions that shard the
+    rows."""
+    from torch.distributed.tensor import Partial, Shard
+    gp = tuple(Partial() if q == Shard(0) else p for p, q in zip(wp, xp))
+    return w.redistribute(w.device_mesh, wp).to_local(grad_placements=gp)
+
+
+def _block_start(mesh, placements, dim: int, local: int) -> int:
+    """The global index of the first entry of this rank's block of
+    tensor dimension `dim` (`local` entries) under `placements`."""
+    from torch.distributed.tensor import Shard
+    lo = 0
+    for md, p in enumerate(placements):
+        if p == Shard(dim):
+            lo = lo * mesh.size(md) + mesh.get_local_rank(md)
+    return lo * local
+
+
+def _gold(logits, labels):
+    """logits[..., labels]: the gold logit of each position.  DTensor's
+    rule for a gather along a dimension sharded over the vocabulary
+    leaves a masked partial sum that breaks in the next op, so on
+    DTensors the gather runs on local blocks (the rows' and the
+    vocabulary's shards kept, any other placement replicated): each rank
+    takes the labels that fall in its vocabulary block (zeros elsewhere)
+    and the partial sums are reduced over the vocabulary's mesh
+    dimension."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    lp = tuple(p if p in (Shard(0), Shard(last)) else Replicate()
+               for p in logits.placements)
+    rp = tuple(Shard(0) if p == Shard(0) else Replicate() for p in lp)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    ll = logits.redistribute(mesh, lp).to_local()
+    lab = labels.redistribute(mesh, rp).to_local()
+    lo = _block_start(mesh, lp, last, ll.shape[-1])
+    mine = (lab >= lo) & (lab < lo + ll.shape[-1])
+    g = torch.gather(ll, -1, torch.where(mine, lab - lo, 0)[..., None]
+                     )[..., 0] * mine
+    gp = tuple(Partial() if p == Shard(last) else q for p, q in zip(lp, rp))
+    g = DTensor.from_local(g, mesh, gp, run_check=False, shape=labels.shape,
+                           stride=labels.stride())
+    return g.redistribute(mesh, rp)
+
+
+def _local_embedding(ids, w):
+    """F.embedding(ids, w) of a DTensor table w (V, d).  DTensor's rule
+    for a table sharded over the vocabulary leaves a masked partial sum
+    whose mask breaks once the output is cast or concatenated, so the
+    lookup runs on local blocks: the ids' rows keep their shards, w is
+    gathered over the mesh dimensions that do not shard the vocabulary
+    (the plan's FSDP gather), each rank looks up the ids that fall in its
+    vocabulary rows (zeros elsewhere), and the partial sums are reduced
+    over the vocabulary's mesh dimension."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = w.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    ip = tuple(p if p == Shard(0) else Replicate() for p in ids.placements)
+    wp = tuple(Shard(0) if p == Shard(0) and q != Shard(0) else Replicate()
+               for p, q in zip(w.placements, ip))
+    il = ids.redistribute(mesh, ip).to_local()
+    wl = _block(w, wp, ip)
+    lo = _block_start(mesh, wp, 0, wl.shape[0])
+    mine = (il >= lo) & (il < lo + wl.shape[0])
+    y = F.embedding(torch.where(mine, il - lo, 0), wl) \
+        * mine[..., None].to(wl.dtype)
+    yp = tuple(Shard(0) if q == Shard(0) else Partial() if p == Shard(0)
+               else Replicate() for p, q in zip(wp, ip))
+    shape = torch.Size(tuple(ids.shape) + (w.shape[1],))
+    y = DTensor.from_local(y, mesh, yp, run_check=False, shape=shape,
+                           stride=torch.empty(shape, device="meta").stride())
+    return y.redistribute(mesh, ip)
 
 
 class _Float32Product(torch.autograd.Function):
@@ -127,17 +225,44 @@ class _Float32Product(torch.autograd.Function):
                 torch.mm(g.t(), x2) if ctx.needs_input_grad[1] else None)
 
 
+def _product(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x2.is_cuda:
+        return _Float32Product.apply(x2, w)
+    return torch.mm(x2.float(), w.float().t())
+
+
+def _local_product(x2, w):
+    """`_product` of two DTensors.  DTensor has no rule for the product
+    with a float32 output (aten.mm.dtype), so it runs on local blocks: x2's
+    rows keep their shards (its other placements are made replicated), w's
+    rows (the vocabulary) keep theirs on the mesh dimensions that do not
+    shard x2's rows, and w is gathered over the others (the plan's FSDP
+    gather over "data": never over the model axis that shards the
+    vocabulary).  The float32 product is a DTensor sharded as those two."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x2.device_mesh
+    xp = tuple(p if p == Shard(0) else Replicate() for p in x2.placements)
+    wp = tuple(Shard(0) if p == Shard(0) and q != Shard(0) else Replicate()
+               for p, q in zip(w.placements, xp))
+    yp = tuple(Shard(0) if q == Shard(0) else Shard(1) if p == Shard(0)
+               else Replicate() for p, q in zip(wp, xp))
+    y = _product(x2.redistribute(mesh, xp).to_local(),
+                 _block(w, wp, xp))
+    N, V = x2.shape[0], w.shape[0]
+    return DTensor.from_local(y, mesh, yp, run_check=False,
+                              shape=torch.Size((N, V)), stride=(V, 1))
+
+
 def float32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w.T accumulated and returned in float32: on a card one product
     with a float32 output, on the host the product of the float32 copies
-    (which hold the operands exactly)."""
+    (which hold the operands exactly); of DTensors, that product of their
+    local blocks (`_local_product`)."""
     if x.dtype == torch.float32:
         return torch.matmul(x, w.t())
+    from torch.distributed.tensor import DTensor
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        y = _Float32Product.apply(x2, w)
-    else:
-        y = torch.mm(x2.float(), w.float().t())
+    y = _local_product(x2, w) if isinstance(x2, DTensor) else _product(x2, w)
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
@@ -270,9 +395,11 @@ def softmax_xent(logits, labels, mask=None):
 def _chunk_nll(x, w, labels, mask, tied: bool):
     """(sum of nll * mask, sum of mask) of one chunk; the logits over the
     whole padded vocabulary, accumulated in float32."""
+    from ..train.meshctx import constrain_batch
     logits = float32_product(x, w.to(x.dtype) if tied else w.to(x.dtype).t())
+    logits = constrain_batch(logits, 0, model_dim=2)      # (B, chunk, V)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    gold = _gold(logits, labels)
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
@@ -295,6 +422,8 @@ def lm_loss_chunked(x, w, labels, mask=None, tied: bool = False,
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
+    from ..train.meshctx import constrain_batch
+    x, labels, mask = (constrain_batch(t) for t in (x, labels, mask))
     remat = recording(x) or recording(w)
     tot = cnt = x.new_zeros((), dtype=torch.float32)
     for c in range(nc):

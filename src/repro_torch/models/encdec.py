@@ -50,6 +50,8 @@ class EncBlock(nn.Module):
 
     def forward(self, x, positions, kv_chunk: int):
         """The reference's `_enc_apply` (non-causal)."""
+        from ..train.meshctx import constrain_batch
+        x = constrain_batch(x)
         x = x + self.attn(self.ln1(x), positions, causal=False,
                           kv_chunk=kv_chunk)
         return x + self.mlp(self.ln2(x), self.cfg.act)
@@ -71,6 +73,8 @@ class DecBlock(nn.Module):
                 with_cache: bool = False):
         """The reference's `_dec_apply`; with `with_cache`, (x, (k, v, xk,
         xv)): the self K/V (after RoPE) and the cross K/V."""
+        from ..train.meshctx import constrain_batch
+        x = constrain_batch(x)
         h, kv = self.attn(self.ln1(x), positions, kv_chunk=kv_chunk,
                           with_cache=True)
         x = x + h

@@ -32,8 +32,8 @@ from torch import nn
 
 from ..device import resolve_device
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, _param,
-                     build, check_model, normal_, remat_groups, run_layers,
-                     silu)
+                     build, check_model, normal_, remat_groups, rms_norm,
+                     run_layers, silu)
 
 __all__ = ["SSDBlock", "Mamba2", "init_params", "forward", "loss_fn",
            "init_state", "prefill", "decode_step", "ssd_params_per_layer",
@@ -159,26 +159,39 @@ class SSDBlock(nn.Module):
         """The reference's `_block_apply`: x (B, S, d).  Streaming when a
         conv state is given: returns (out, (conv state, ssd state)); a
         prompt (S > 1, no ssd state) runs the chunked scan, a step the
-        single-step recurrence from `ssd_state` (zeros when None)."""
+        single-step recurrence from `ssd_state` (zeros when None).
+
+        Under a mesh (DTensors) everything between the two projections
+        runs on each rank's local batch rows (`meshctx.Local`): the split
+        of in_proj's columns does not follow their shards over "model",
+        and DTensor's strategy search over the scan's five-dimensional
+        einsums takes minutes on a three-axis mesh.  The parameters used
+        there are replicated by the plan."""
+        from ..train.meshctx import Local, constrain_batch
         cfg = self.cfg
         d_inner, H, P, N = _dims(cfg)
+        x = constrain_batch(x)
         residual = x
-        zxbcdt = self.in_proj(self.ln(x))
+        blk = Local(self.in_proj(self.ln(x)))
+        conv_w, conv_b, A_log, D, dt_bias, ln_scale = (
+            blk.weight(p, {}) for p in (self.conv_w, self.conv_b,
+                                         self.A_log, self.D, self.dt_bias,
+                                         self.ln_out.scale))
         z, xr, Bm, Cm, dt = torch.split(
-            zxbcdt, [d_inner, d_inner, N, N, H], dim=-1)
+            blk.x, [d_inner, d_inner, N, N, H], dim=-1)
         xbc = torch.cat([xr, Bm, Cm], dim=-1)
         if conv_state is None:
-            xbc = _causal_conv(xbc, self.conv_w, self.conv_b)
+            xbc = _causal_conv(xbc, conv_w, conv_b)
             new_conv = None
         else:
-            xbc, new_conv = _causal_conv(xbc, self.conv_w, self.conv_b,
+            xbc, new_conv = _causal_conv(xbc, conv_w, conv_b,
                                          state=conv_state)
         xbc = silu(xbc)
         xr, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
         Bsz, S = xr.shape[:2]
         xh = xr.reshape(Bsz, S, H, P)
-        dt = F.softplus(dt.float() + self.dt_bias)
-        A = -torch.exp(self.A_log)
+        dt = F.softplus(dt.float() + dt_bias)
+        A = -torch.exp(A_log)
         if ssd_state is None and S > 1:
             y, hT = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm.chunk)
         else:
@@ -192,10 +205,10 @@ class SSDBlock(nn.Module):
                 xdt[..., None] * Bm[:, 0].float()[:, None, None, :]
             y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(),
                              hT)[:, None].to(xh.dtype)
-        y = y + xh * self.D.to(xh.dtype)[:, None]
+        y = y + xh * D.to(xh.dtype)[:, None]
         y = y.reshape(Bsz, S, d_inner)
-        y = self.ln_out(y * silu(z))
-        out = residual + self.out_proj(y)
+        y = rms_norm(y * silu(z), ln_scale, self.ln_out.eps)
+        out = residual + self.out_proj(blk.wrap(y))
         if conv_state is None:
             return out
         return out, (new_conv, hT)

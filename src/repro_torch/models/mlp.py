@@ -12,6 +12,10 @@ dispatch under a capacity, group-local per batch row:
     zeros; the shared expert is added; the Switch auxiliary loss.
 The expert products are batched einsums over the stacked (E, d, dff)
 weights (every expert's weights are read, as the reference's are).
+Under a mesh the reference's anchors (`meshctx.constrain_tokens` on the
+dispatch, `constrain_group_expert` around the expert products) move the
+groups and experts between ranks; the routing, the dispatch, the expert
+products and the combine run on each rank's local blocks.
 """
 from __future__ import annotations
 
@@ -66,11 +70,16 @@ class MoE(nn.Module):
         (B, S, k), gates (B, S, k) float32 after the keep mask, keep
         (B, S, k), slot (B, S*k): each pick's queue slot, E*cap if
         dropped, cap)."""
+        from ..train.meshctx import Local
         logits = self.router(x).float()                       # (G, Tg, E)
         probs = torch.softmax(logits, dim=-1)
-        order = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
+        # the picks and the queues are local to each row (a group):
+        # under DTensor they run on the local rows (`Local`), and all but
+        # probs come back local
+        p = Local(x).local(probs)
+        order = torch.sort(p, dim=-1, descending=True, stable=True)[1]
         sel = order[..., :self.cfg.moe.top_k]                 # (G, Tg, k)
-        return (probs, sel) + self.queue(probs, sel)
+        return (probs, sel) + self.queue(p, sel)
 
     def queue(self, probs: torch.Tensor, sel: torch.Tensor):
         """The picks `sel` (G, Tg, k) of `probs` (G, Tg, E) into the
@@ -95,34 +104,53 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor, act: str = "silu"):
         """x: (B, S, d) -> (y (B, S, d), aux_loss); a group is a row."""
+        from ..train.meshctx import (Local, constrain_group_expert,
+                                     constrain_tokens)
         mo = self.cfg.moe
         B, S, d = x.shape
         E, k = mo.num_experts, mo.top_k
-        G, Tg = B, S
+        Tg = S
+        x = constrain_tokens(x)                               # (G, Tg, d)
         probs, sel, gate_vals, _, slot, cap = self.route(x)
         # group-local scatter of token ids into the expert queues; the
-        # sentinel slot E*cap (dropped picks) is cut off
-        token_id = torch.arange(Tg, device=x.device).repeat_interleave(k)
+        # sentinel slot E*cap (dropped picks) is cut off.  Under DTensor
+        # the dispatch and the combine run on each rank's local groups,
+        # and the expert products on its local (groups, experts) blocks
+        # between the anchors (`Local`: DTensor has no rule for the
+        # scatter into a fresh tensor, and its einsum fails on these
+        # blocks)
+        r = Local(x)
+        xl = r.x
+        G = xl.shape[0]
+        token_id = torch.arange(Tg, device=xl.device).repeat_interleave(k)
         slot_token = torch.full((G, E * cap + 1), Tg, dtype=torch.int64,
-                                device=x.device)
+                                device=xl.device)
         slot_token.scatter_(1, slot, token_id.expand(G, Tg * k))
-        rows = torch.arange(G, device=x.device)[:, None]
-        xt_pad = torch.cat([x, x.new_zeros((G, 1, d))], dim=1)
-        xe = xt_pad[rows, slot_token[:, :-1]].reshape(G, E, cap, d)
-        g = torch.einsum("gecd,edf->gecf", xe, self.gate_w.to(x.dtype))
-        u = torch.einsum("gecd,edf->gecf", xe, self.up_w.to(x.dtype))
+        rows = torch.arange(G, device=xl.device)[:, None]
+        xt_pad = torch.cat([xl, xl.new_zeros((G, 1, d))], dim=1)
+        xe = r.wrap(xt_pad[rows, slot_token[:, :-1]].reshape(G, E, cap, d))
+        xe = constrain_tokens(xe)            # dispatch: groups everywhere
+        xe = constrain_group_expert(xe)      # -> all-to-all to expert shards
+        ge = Local(xe, dims=(0, 1))
+        gate_w, up_w, down_w = (ge.weight(w, {0: 1}).to(x.dtype) for w in
+                                (self.gate_w, self.up_w, self.down_w))
+        g = torch.einsum("gecd,edf->gecf", ge.x, gate_w)
+        u = torch.einsum("gecd,edf->gecf", ge.x, up_w)
         h = _act(act)(g) * u
-        ye = torch.einsum("gecf,efd->gecd", h, self.down_w.to(x.dtype))
+        ye = ge.wrap(torch.einsum("gecf,efd->gecd", h, down_w), xe.shape)
+        ye = constrain_group_expert(ye)
+        ye = constrain_tokens(ye)            # all-to-all back to token shards
         # group-local combine; a dropped pick reads the zero sentinel row
-        ye_flat = torch.cat([ye.reshape(G, E * cap, d),
-                             ye.new_zeros((G, 1, d))], dim=1)
+        yel = r.local(ye)
+        ye_flat = torch.cat([yel.reshape(G, E * cap, d),
+                             yel.new_zeros((G, 1, d))], dim=1)
         yk = ye_flat[rows, slot].reshape(G, Tg, k, d)
-        y = torch.einsum("gtkd,gtk->gtd", yk.float(), gate_vals
-                         ).to(x.dtype).reshape(B, S, d)
+        y = r.wrap(torch.einsum("gtkd,gtk->gtd", yk.float(), gate_vals
+                                ).to(x.dtype))
         if self.shared is not None:
             y = y + self.shared(x, act)
         # load-balance auxiliary loss (Switch style)
         me = probs.mean(dim=(0, 1))                           # (E,)
-        ce = F.one_hot(sel[..., 0], E).float().mean(dim=(0, 1))
+        ce = r.wrap(F.one_hot(sel[..., 0], E).float()).mean(dim=(0, 1))
         aux = E * torch.sum(me * ce)
         return y, aux

@@ -186,7 +186,9 @@ class RecLayer(nn.Module):
     def forward(self, x, conv_state=None, lru_state=None):
         """The reference's `_rec_apply`: (out) or, with a conv state,
         (out, (conv state, LRU state))."""
+        from ..train.meshctx import constrain_batch
         act = self.cfg.act
+        x = constrain_batch(x)
         res = x
         xi = self.ln(x)
         xb = self.in_x(xi)
@@ -245,6 +247,7 @@ class RecurrentGemma(LanguageModel):
                 return_hidden: bool = False, cfg=None):
         """`cfg` (the model's own when None) may differ from it in `remat`
         and `remat_group` alone."""
+        from ..train.meshctx import constrain_batch
         cfg = cfg or self.cfg
         x = self.embed_inputs(tokens, prefix_embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -254,6 +257,7 @@ class RecurrentGemma(LanguageModel):
                 return layer
 
             def f(x):
+                x = constrain_batch(x)
                 x = x + layer.attn(layer.ln1(x), positions, kv_chunk=kv_chunk)
                 return layer.ffn(x)
             return f

@@ -72,13 +72,15 @@ class Transformer(LanguageModel):
                 return_hidden: bool = False, cfg=None):
         """`cfg` (the model's own when None) may differ from it in `remat`
         and `remat_group` alone."""
+        from ..train.meshctx import constrain_batch
         cfg = cfg or self.cfg
-        x = self.embed_inputs(tokens, prefix_embeds)
+        x = constrain_batch(self.embed_inputs(tokens, prefix_embeds))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
         def block_fn(bp):
             def f(carry):
                 x, aux = carry
+                x = constrain_batch(x)
                 x = x + bp.attn(bp.ln1(x), positions, kv_chunk=kv_chunk)
                 m, a = bp.ffn(bp.ln2(x))
                 return x + m, aux + a

@@ -20,6 +20,17 @@ bfloat16 one as int16) and the shard's `__dtypes__` entry (a JSON string)
 names each key's dtype: a restore is bitwise.  `restore` copies into the
 tensors of `state_like` in place (a module's parameters too) and returns
 new arrays for its numpy leaves.
+
+A placed state (`train_step.place_state`: DTensors on a mesh) is saved
+as the reference's sharded layout: each rank writes its own local blocks
+to `shard_<rank>.npz` (no tensor is gathered; `host_id` defaults to the
+rank), with each DTensor key's global shape, local shape and placements
+under `__layout__`, and its plain leaves (the step) whole.  Host 0
+commits the MANIFEST once every rank's shard is in the step's directory
+(it waits for the files, so no collective runs on the save thread).
+`restore` reads the rank's own shard into the state's local blocks: the
+state must be placed on a mesh of the same shape (a layout that differs
+raises ValueError).
 """
 from __future__ import annotations
 
@@ -32,11 +43,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 __all__ = ["save", "restore", "latest_step", "Checkpointer"]
 
 _DTYPES = "__dtypes__"
+_LAYOUT = "__layout__"
+# how long host 0 waits for the other ranks' shards before it commits
+COMMIT_TIMEOUT_S = 600.0
 _WORDS = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
 
 
@@ -55,8 +71,16 @@ def _items(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
+def _layout(t: DTensor) -> dict:
+    return {"shape": list(t.shape), "local": list(t.to_local().shape),
+            "placements": [str(p) for p in t.placements]}
+
+
 def _host(leaf):
-    """(numpy array, dtype name) of a leaf, copied to the host now."""
+    """(numpy array, dtype name) of a leaf, copied to the host now (a
+    DTensor's local block)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.to_local()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         name = str(t.dtype).removeprefix("torch.")
@@ -67,18 +91,39 @@ def _host(leaf):
     return a, a.dtype.name
 
 
-def _host_arrays(state) -> dict:
-    """{key: host array} of a state, and its dtype names under
-    `__dtypes__`."""
-    arrays, dtypes = {}, {}
+def _host_arrays(state) -> tuple:
+    """({key: host array} of a state, its dtype names under `__dtypes__`
+    and its DTensors' layouts under `__layout__`; the number of hosts
+    that write a shard: the mesh's ranks for a placed state, else 1)."""
+    arrays, dtypes, layout, hosts = {}, {}, {}, 1
     for key, leaf in _items(state):
+        if isinstance(leaf, DTensor):
+            layout[key] = _layout(leaf)
+            hosts = leaf.device_mesh.size()
         arrays[key], dtypes[key] = _host(leaf)
     arrays[_DTYPES] = np.array(json.dumps(dtypes))
-    return arrays
+    arrays[_LAYOUT] = np.array(json.dumps(layout))
+    return arrays, hosts
+
+
+def _host_id(host_id: int | None) -> int:
+    if host_id is not None:
+        return host_id
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _wait_for_shards(final: Path, hosts: int) -> None:
+    deadline = time.monotonic() + COMMIT_TIMEOUT_S
+    while not all((final / f"shard_{h}.npz").exists()
+                  for h in range(hosts)):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{final}: not every rank's shard arrived "
+                               f"within {COMMIT_TIMEOUT_S} s")
+        time.sleep(0.01)
 
 
 def _write(ckpt_dir: Path, step: int, arrays: dict, host_id: int,
-           extra: dict | None) -> Path:
+           extra: dict | None, hosts: int = 1) -> Path:
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}_{host_id}"
     tmp.mkdir(parents=True, exist_ok=True)
@@ -86,10 +131,12 @@ def _write(ckpt_dir: Path, step: int, arrays: dict, host_id: int,
     np.savez(tmp / f"shard_{host_id}.npz", **arrays)
     os.replace(tmp / f"shard_{host_id}.npz", final / f"shard_{host_id}.npz")
     shutil.rmtree(tmp, ignore_errors=True)
-    # manifest commit (host 0)
+    # manifest commit (host 0), after every host's shard
     if host_id == 0:
+        _wait_for_shards(final, hosts)
         manifest = {"step": step, "time": time.time(),
-                    "keys": sorted(k for k in arrays if k != _DTYPES),
+                    "keys": sorted(k for k in arrays
+                                   if k not in (_DTYPES, _LAYOUT)),
                     **(extra or {})}
         mtmp = final / ".MANIFEST.tmp"
         mtmp.write_text(json.dumps(manifest))
@@ -97,9 +144,11 @@ def _write(ckpt_dir: Path, step: int, arrays: dict, host_id: int,
     return final
 
 
-def save(ckpt_dir: str | Path, step: int, state, host_id: int = 0,
+def save(ckpt_dir: str | Path, step: int, state, host_id: int | None = None,
          extra: dict | None = None) -> Path:
-    return _write(Path(ckpt_dir), step, _host_arrays(state), host_id, extra)
+    arrays, hosts = _host_arrays(state)
+    return _write(Path(ckpt_dir), step, arrays, _host_id(host_id), extra,
+                  hosts)
 
 
 def latest_step(ckpt_dir: str | Path) -> int | None:
@@ -119,22 +168,22 @@ def _loaded(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return t.view(want) if want in _WORDS else t
 
 
-def _restore_into(tree, arrays: dict, dtypes: dict, prefix: str = ""):
+def _restore_into(tree, arrays: dict, meta: tuple, prefix: str = ""):
     if isinstance(tree, nn.Module):
         with torch.no_grad():
             for name, p in tree.named_parameters():
-                _copy(p, arrays, dtypes, prefix + name)
+                _copy(p, arrays, meta, prefix + name)
         return tree
     if isinstance(tree, dict):
-        return {k: _restore_into(v, arrays, dtypes, f"{prefix}{k}/")
+        return {k: _restore_into(v, arrays, meta, f"{prefix}{k}/")
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_restore_into(v, arrays, dtypes, f"{prefix}{i}/")
+        return type(tree)(_restore_into(v, arrays, meta, f"{prefix}{i}/")
                           for i, v in enumerate(tree))
     key = prefix[:-1]
     if isinstance(tree, torch.Tensor):
         with torch.no_grad():
-            _copy(tree, arrays, dtypes, key)
+            _copy(tree, arrays, meta, key)
         return tree
     arr = arrays[key]
     _same_shape(key, arr.shape, np.shape(tree))
@@ -147,16 +196,26 @@ def _same_shape(key: str, stored, want) -> None:
                          f"{tuple(stored)}, not {tuple(want)}")
 
 
-def _copy(t: torch.Tensor, arrays: dict, dtypes: dict, key: str) -> None:
+def _copy(t: torch.Tensor, arrays: dict, meta: tuple, key: str) -> None:
+    dtypes, layout = meta
     src = _loaded(arrays[key], dtypes[key])
+    if isinstance(t, DTensor):
+        if layout.get(key) != _layout(t):
+            raise ValueError(f"checkpoint entry {key!r} was saved as "
+                             f"{layout.get(key)}, not {_layout(t)}")
+        t = t.to_local()
+    elif key in layout:
+        raise ValueError(f"checkpoint entry {key!r} is a shard "
+                         f"{layout[key]}; the state is not placed")
     _same_shape(key, src.shape, t.shape)
     t.copy_(src)
 
 
 def restore(ckpt_dir: str | Path, state_like, step: int | None = None,
-            host_id: int = 0):
+            host_id: int | None = None):
     """Restore into the structure of `state_like` (shapes must match):
-    its tensors are overwritten in place.  Returns (state, step)."""
+    its tensors are overwritten in place (a DTensor's local block from
+    this rank's shard).  Returns (state, step)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -165,20 +224,21 @@ def restore(ckpt_dir: str | Path, state_like, step: int | None = None,
     d = ckpt_dir / f"step_{step:08d}"
     if not (d / "MANIFEST.json").exists():
         raise FileNotFoundError(f"uncommitted checkpoint {d}")
-    with np.load(d / f"shard_{host_id}.npz") as z:
+    with np.load(d / f"shard_{_host_id(host_id)}.npz") as z:
         arrays = {k: z[k] for k in z.files}
     dtypes = json.loads(str(arrays.pop(_DTYPES)))
-    return _restore_into(state_like, arrays, dtypes), step
+    layout = json.loads(str(arrays.pop(_LAYOUT, np.array("{}"))))
+    return _restore_into(state_like, arrays, (dtypes, layout)), step
 
 
 class Checkpointer:
     """Async checkpoint manager with retention."""
 
     def __init__(self, ckpt_dir: str | Path, keep: int = 3,
-                 host_id: int = 0):
+                 host_id: int | None = None):
         self.dir = Path(ckpt_dir)
         self.keep = keep
-        self.host_id = host_id
+        self.host_id = _host_id(host_id)
         self._thread: threading.Thread | None = None
 
     def wait(self):
@@ -188,10 +248,10 @@ class Checkpointer:
 
     def save_async(self, step: int, state, extra: dict | None = None):
         self.wait()
-        arrays = _host_arrays(state)  # device->host copy now
+        arrays, hosts = _host_arrays(state)  # device->host copy now
 
         def work():
-            _write(self.dir, step, arrays, self.host_id, extra)
+            _write(self.dir, step, arrays, self.host_id, extra, hosts)
             self._gc()
 
         self._thread = threading.Thread(target=work, daemon=True)

@@ -10,6 +10,13 @@ gradients.  Parameters are a module (its `named_parameters()`) or a dict
 {name: tensor}; gradients, m and v are dicts keyed by the same names.  The
 update writes the parameters, m and v in place; the step counter is an
 int32 tensor, and the schedule's lr and the norm stay on the device.
+
+On a placed state (`train_step.place_state`) the parameters, gradients,
+m and v are DTensors placed alike, and the same code runs on them: each
+leaf's update is local to its shards, and the clip's norm is the global
+one (every leaf's sum of squares stays a partial sum over its shards,
+and the one reduction is the square root's); the step, lr and the clip
+scale are replicated.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor.experimental import implicit_replication
 
 __all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "cosine_lr",
            "named"]
@@ -62,7 +70,7 @@ def init_opt_state(params) -> dict:
     dev = next(iter(p.values())).device
 
     def zeros():
-        return {k: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        return {k: torch.zeros_like(t, dtype=torch.float32)
                 for k, t in p.items()}
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -78,6 +86,11 @@ def adamw_update(cfg: AdamWConfig, params, grads: dict, opt_state: dict):
     """One AdamW step: returns (params, opt_state, stats), the parameters,
     m and v updated in place, `stats` = {"grad_norm", "lr"} (float32
     tensors).  lr is `cosine_lr` at the new step (the old one + 1)."""
+    with implicit_replication():
+        return _adamw_update(cfg, params, grads, opt_state)
+
+
+def _adamw_update(cfg, params, grads, opt_state):
     p = named(params)
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)

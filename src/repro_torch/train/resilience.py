@@ -21,25 +21,48 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["MeshPlan", "replan_mesh", "StepMonitor", "RunGuard"]
+__all__ = ["MeshPlan", "replan_mesh", "plan_mesh", "StepMonitor",
+           "RunGuard"]
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
-    """A (data, model) factorization of `devices`; `mesh` is the
-    `DeviceMesh` over them when a process group of that size was up."""
+    """A (data, model) factorization of `devices`, with a leading "pod"
+    axis when `pod` is set; `mesh` is the `DeviceMesh` over them when a
+    process group of that size was up."""
     data: int
     model: int
     devices: tuple
     mesh: object = None
+    pod: int | None = None
 
     @property
     def shape(self) -> dict:
-        return {"data": self.data, "model": self.model}
+        head = {} if self.pod is None else {"pod": self.pod}
+        return {**head, "data": self.data, "model": self.model}
+
+
+def plan_mesh(data: int, model: int, *, pod: int | None = None,
+              devices=None, device_type: str | None = None) -> MeshPlan:
+    """The plan of a ("pod",) "data", "model" mesh of these sizes; its
+    `DeviceMesh` (device type `device_type`: "cuda" when the process sees
+    a card unless given) exists only when a process group of the plan's
+    size is up."""
+    n = (pod or 1) * data * model
+    devs = tuple(devices if devices is not None else range(n))[:n]
+    mesh = None
+    if dist.is_initialized() and dist.get_world_size() == n:
+        from torch.distributed.device_mesh import init_device_mesh
+        dt = device_type or ("cuda" if torch.cuda.is_available() else "cpu")
+        shape = (data, model) if pod is None else (pod, data, model)
+        names = ("data", "model") if pod is None else ("pod", "data", "model")
+        mesh = init_device_mesh(dt, shape, mesh_dim_names=names)
+    return MeshPlan(data, model, devs, mesh, pod)
 
 
 def replan_mesh(n_devices: int, *, model_axis_max: int = 16,
-                prefer_model: int = 16, devices=None) -> MeshPlan:
+                prefer_model: int = 16, devices=None,
+                device_type: str | None = None) -> MeshPlan:
     """Largest (data, model) mesh from n_devices.
 
     Keeps the model axis as close to `prefer_model` as divisibility allows
@@ -47,20 +70,13 @@ def replan_mesh(n_devices: int, *, model_axis_max: int = 16,
     nodes).  `devices` defaults to the ranks 0 .. n_devices - 1; the plan
     takes the first data * model of them.  No process group is needed: a
     `DeviceMesh` ("data", "model") is built only when one is up whose
-    world is the plan's size."""
+    world is the plan's size (device type `device_type`: "cuda" when
+    the process sees a card unless given)."""
     model = min(prefer_model, model_axis_max)
     while model > 1 and n_devices % model != 0:
         model //= 2
     data = n_devices // model
-    devs = tuple(devices if devices is not None
-                 else range(n_devices))[:data * model]
-    mesh = None
-    if dist.is_initialized() and dist.get_world_size() == data * model:
-        from torch.distributed.device_mesh import init_device_mesh
-        mesh = init_device_mesh(
-            "cuda" if torch.cuda.is_available() else "cpu", (data, model),
-            mesh_dim_names=("data", "model"))
-    return MeshPlan(data, model, devs, mesh)
+    return plan_mesh(data, model, devices=devices, device_type=device_type)
 
 
 @dataclasses.dataclass

@@ -47,6 +47,13 @@ def test_the_four_examples_are_scanned():
         "torch_train_lm.py", "torch_transform_study.py"]
 
 
+def test_the_mesh_modules_are_scanned():
+    """The multi-card slice's modules are among the scanned sources."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"train/sharding.py", "train/meshctx.py",
+            "launch/mesh.py"} <= names
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
