@@ -297,7 +297,10 @@ non-zero:
    state's bytes, the peak memory with remat on and off, the model FLOPs
    (6 N tokens) and what remat recomputes, their share of the dense bf16
    peak, and from `torch.profiler` over the 8th step the device's busy
-   share and its top six ops.  (3) `launch.train.main` on the card at the
+   share and its top six ops; the 1st step runs under the dry run's op
+   counter (`launch.op_analysis.OpCounter`), and its dot FLOPs must equal
+   exactly the dry run's count of the same step unplaced over meta
+   tensors on the host (`launch.dryrun.count_train_step`).  (3) `launch.train.main` on the card at the
    reduced internlm2 (batch 4 x 64): 40 steps straight; a run aborted
    after 25 steps resumes from its checkpoint and ends within 1e-3 of the
    straight run's final loss; a step whose update turns every parameter
@@ -4642,6 +4645,8 @@ def train_full() -> dict:
     from repro_torch.train.optimizer import global_norm
     from repro_torch.train.resilience import RunGuard, StepMonitor
     from repro_torch.train.train_step import to_device, value_and_grad
+    from repro_torch.launch.dryrun import count_train_step
+    from repro_torch.launch.op_analysis import OpCounter
     arch, B, S, steps = TRAIN_FULL
     cfg = get_config(arch)
     t0 = time.perf_counter()
@@ -4665,7 +4670,11 @@ def train_full() -> dict:
     for i in range(steps):
         batch = next(it)
         mon.start()
-        if i < steps - 1:
+        if i == 0:  # the first, outside the median: under the op counter
+            counter = OpCounter()
+            with counter:
+                state, met = step_fn(state, batch)
+        elif i < steps - 1:
             state, met = step_fn(state, batch)
         else:       # where a step's time goes: the last under the profiler
             (state, met), prof = profiled(lambda: step_fn(state, batch))
@@ -4677,6 +4686,13 @@ def train_full() -> dict:
         gnorms.append(float(met["grad_norm"]))
         step_s.append(t["step_time_s"])
     peak_remat = torch.cuda.max_memory_allocated()
+    # the dry run's count of the same step, unplaced, over meta tensors
+    t0 = time.perf_counter()
+    meta = count_train_step(cfg, B, S, opt)
+    counted = counter.totals()
+    op_count = {"card": counted, "meta": {k: meta[k] for k in counted},
+                "meta_count_s": time.perf_counter() - t0,
+                "counted_step_ms": step_s[0] * 1e3}
     # the same state with remat on (loss and gradients, no update) and one
     # extra train step with remat off
     batch = next(it)
@@ -4709,7 +4725,8 @@ def train_full() -> dict:
            "remat_on": {"loss": loss_on, "grad_norm": gnorm_on},
            "remat_off": {"loss": loss_off, "grad_norm": gnorm_off},
            "no_grad": missing, "grads_finite": finite,
-           "stragglers": mon.stragglers, **train_flops(cfg, tokens)}
+           "stragglers": mon.stragglers, "op_count": op_count,
+           **train_flops(cfg, tokens)}
     res["model_flops_share"] = res["model_flops"] / (ms / 1e3) \
         / H100_BF16_FLOPS
     res["with_remat_flops_share"] = (res["model_flops"]
@@ -4735,6 +4752,11 @@ def train_full() -> dict:
         f"(989 TFLOP/s, NVIDIA's H100 SXM data sheet); remat recomputes "
         f"{res['remat_flops']:.4e} more ({res['with_remat_flops_share']:.4f}"
         f" with it)")
+    log(f"      op counter: step 1 on the card {counted['flops']:.6e} "
+        f"dot FLOPs, the dry run's meta count of the same step "
+        f"{meta['flops']:.6e} ({op_count['meta_count_s']:.1f} s on the "
+        f"host); the counted step {op_count['counted_step_ms']:.1f} ms "
+        f"against the median {ms:.1f}")
     log(f"      remat on vs off, same state: loss {loss_on:.6f} / "
         f"{loss_off:.6f}, grad norm {gnorm_on:.6f} / {gnorm_off:.6f}")
     log(f"      profiled step {steps}: device busy {dev_ms:.1f} ms of "
@@ -4749,6 +4771,9 @@ def train_full() -> dict:
           f"{loss_on} vs {loss_off}")
     check(abs(gnorm_on - gnorm_off) <= TRAIN_REMAT_RTOL * gnorm_on,
           f"{arch}: remat changed the grad norm: {gnorm_on} vs {gnorm_off}")
+    check(counted["flops"] == meta["flops"] > 0,
+          f"{arch}: the card's step counted {counted['flops']} dot FLOPs, "
+          f"the dry run's meta count {meta['flops']}")
     return res
 
 

@@ -59,9 +59,11 @@ def f(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
-    """Returns {"kind", "batch"/"tokens"/..., per-kind structure}."""
-    sd = SHAPES[shape_name]
+def input_specs(cfg: ArchConfig, shape_name) -> dict:
+    """Returns {"kind", "batch"/"tokens"/..., per-kind structure}; a
+    `ShapeDef` may stand for the shape's name."""
+    sd = shape_name if isinstance(shape_name, ShapeDef) \
+        else SHAPES[shape_name]
     B, S = sd.global_batch, sd.seq_len
     i32, f32 = torch.int32, torch.float32
     bf16 = torch.bfloat16

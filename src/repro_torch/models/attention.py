@@ -16,7 +16,10 @@ at 1e-30, as in the reference, so fully masked padded rows stay finite.
 Under a mesh (DTensor inputs) the online softmax runs on each rank's
 local (batch rows, heads) blocks (`_chunked_attn`); the reference pads
 heads to its mesh's model axis, and here a head count that the model
-axis does not divide is computed whole on every rank of that axis.
+axis does not divide is computed whole on every rank of that axis: the
+projection's columns are gathered before its heads are split out
+(`_split_heads`), whatever the plan shards them into.  Decode runs on
+DTensors against a cache placed by the dry run's rule.
 """
 from __future__ import annotations
 
@@ -34,6 +37,13 @@ NEG_INF = -1e30
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """x (..., n * hd) as (..., n, hd).  A DTensor projection whose
+    columns the mesh shards into blocks that cut across heads (the plan
+    shards the `n * hd` columns over "model" whenever its size divides
+    them, also where it does not divide `n`: the k and v projections of
+    most GQA models) is made whole there first (`meshctx.unshard`)."""
+    from ..train.meshctx import unshard
+    x = unshard(x, -1, n)
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
@@ -44,22 +54,34 @@ def _chunked_attn(q, k, v, **kw) -> torch.Tensor:
     einsum decomposition views a permuted local block whose layout its
     global strides misstate, so under DTensor q, k and v are anchored
     (batch over the data axes, heads over "model" when the model axis
-    divides both head counts, else the heads are replicated) and
-    `_attn` runs on each rank's local blocks (`meshctx.Local`); a q head
-    of a local block reads the kv heads of the same block (head h reads
-    kv head h // G, and both counts split evenly).  The reference pads
-    odd head counts to the model axis instead; here they are computed
-    whole on every rank of the model axis."""
+    divides them) and `_attn` runs on each rank's local blocks
+    (`meshctx.Local`).  When the model axis divides both head counts, a
+    q head of a local block reads the kv heads of the same block (head h
+    reads kv head h // G, and both counts split evenly).  When it divides
+    the q heads alone (GQA with fewer kv heads than the axis), the kv
+    heads stay whole on every rank and each rank reads those of its own
+    q heads (their gradients partial over the model axis).  The
+    reference pads other head counts to the model axis; here they are
+    computed whole on every rank of the model axis."""
     from torch.distributed.tensor import DTensor
     if not isinstance(q, DTensor):
         return _attn(q, k, v, **kw)
     from ..train.meshctx import Local, constrain_batch, model_axis_size
     msz = model_axis_size()
-    split = q.shape[2] % msz == 0 and k.shape[2] % msz == 0
-    md = 2 if split else None
-    q, k, v = (constrain_batch(t, 0, model_dim=md) for t in (q, k, v))
-    blk = Local(q, dims=(0, 2) if split else (0,))
-    return blk.wrap(_attn(blk.x, blk.local(k), blk.local(v), **kw), q.shape)
+    split_q = q.shape[2] % msz == 0
+    split_kv = split_q and k.shape[2] % msz == 0
+    q = constrain_batch(q, 0, model_dim=2 if split_q else None)
+    k, v = (constrain_batch(t, 0, model_dim=2 if split_kv else None)
+            for t in (k, v))
+    blk = Local(q, dims=(0, 2) if split_q else (0,))
+    if split_kv or not split_q:
+        kl, vl = blk.local(k), blk.local(v)
+    else:
+        G = q.shape[2] // k.shape[2]
+        lo = blk.start(2)
+        idx = torch.arange(lo, lo + blk.x.shape[2], device=blk.x.device)
+        kl, vl = (blk.shared(t)[:, :, idx // G] for t in (k, v))
+    return blk.wrap(_attn(blk.x, kl, vl, **kw), q.shape)
 
 
 def _attn(q, k, v, *, causal: bool, window: int, q_offset: int,
@@ -131,6 +153,18 @@ def _attn(q, k, v, *, causal: bool, window: int, q_offset: int,
     return torch.cat(blocks, dim=1)[:, :Sq]
 
 
+def _softmax(s: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim.  Of a DTensor whose last dim (the cache
+    slots) the mesh shards, it is taken on the shards, with the max and
+    the sum reduced across them (DTensor's softmax would gather the
+    scores first)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(s, DTensor):
+        return torch.softmax(s, dim=-1)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)
+
+
 def _ring_valid(slots: torch.Tensor, pos: int, S_cache: int,
                 window: int) -> torch.Tensor:
     """Which ring slots hold valid (written, in-window) positions."""
@@ -161,6 +195,7 @@ class Attention(nn.Module):
         """Full attention over x (prefill).  kv_source: an encoder output
         for cross-attention (then causal=False, no RoPE).  Returns y, or
         (y, (k, v)) with `with_cache` (k after RoPE)."""
+        from ..train.meshctx import unshard_grad
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         src = x if kv_source is None else kv_source
@@ -173,7 +208,8 @@ class Attention(nn.Module):
         window = cfg.window if cfg.attention == "local" else 0
         y = _chunked_attn(q, k, v, causal=causal, window=window,
                           q_offset=q_offset, kv_chunk=kv_chunk)
-        y = self.o(y.reshape(y.shape[:2] + (cfg.n_heads * hd,)))
+        y = self.o(unshard_grad(y.reshape(y.shape[:2] + (cfg.n_heads * hd,)),
+                                -1, cfg.n_heads))
         if with_cache:
             return y, (k, v)
         return y
@@ -184,8 +220,10 @@ class Attention(nn.Module):
         x: (B, 1, d); cache_k/v: (B, S_cache, K, hd); pos: the new token's
         absolute position.  For self-attention the new token's K/V are
         written into the caches, in place, at slot `pos % S_cache` (ring
-        semantics cover full and local caches).  Returns (y, cache_k,
+        semantics cover full and local caches; a DTensor cache through
+        `meshctx.write`, on each rank's block).  Returns (y, cache_k,
         cache_v)."""
+        from ..train.meshctx import unshard, write
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         B = x.shape[0]
@@ -198,19 +236,21 @@ class Attention(nn.Module):
             q = rope(q, positions, cfg.rope_theta)
             k_new = rope(k_new, positions, cfg.rope_theta)
             slot = pos % cache_k.shape[1]
-            cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
-            cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
+            write(cache_k, k_new.to(cache_k.dtype), dim=1,
+                  index=slice(slot, slot + 1))
+            write(cache_v, v_new.to(cache_v.dtype), dim=1,
+                  index=slice(slot, slot + 1))
         S_cache, K = cache_k.shape[1], cache_k.shape[2]
         G = cfg.n_heads // K
         scale = 1.0 / math.sqrt(hd)
-        qg = q.reshape(B, 1, K, G, hd).float() * scale
+        qg = unshard(q, 2, K).reshape(B, 1, K, G, hd).float() * scale
         s = torch.einsum("bqkgh,bckh->bqgkc", qg, cache_k.float())
         if not cross:
             valid = _ring_valid(torch.arange(S_cache, device=x.device), pos,
                                 S_cache,
                                 cfg.window if cfg.attention == "local" else 0)
             s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
-        w = torch.softmax(s, dim=-1)
+        w = _softmax(s)
         y = torch.einsum("bqgkc,bckh->bqgkh", w, cache_v.float())
         y = y.movedim(3, 2).reshape(B, 1, cfg.n_heads * hd)  # (K, G) order
         return self.o(y.to(x.dtype)), cache_k, cache_v

@@ -33,6 +33,7 @@ Conventions, as in the reference:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -45,7 +46,7 @@ from ..device import resolve_device
 
 __all__ = ["DTYPES", "Dense", "RMSNorm", "Embedding", "LanguageModel",
            "build", "check_model", "on_device", "float32_product", "rope",
-           "rms_norm",
+           "rms_norm", "serving",
            "gelu", "silu", "normal_", "softmax_xent", "lm_loss_chunked",
            "remat_groups", "run_layers", "recording"]
 
@@ -82,10 +83,48 @@ class Dense(nn.Module):
             if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.w.to(x.dtype))
+        y = _reduced(torch.matmul(x, self.w.to(x.dtype)))
         if self.b is not None:
             y = (y.float() + self.b.float()).to(x.dtype)
         return y
+
+
+def _summed(t):
+    """A DTensor's partial sums reduced (Partial -> Replicate); t itself
+    when it has none."""
+    from torch.distributed.tensor import Replicate
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in t.placements))
+
+
+class _Reduced(torch.autograd.Function):
+    """y with its partial sums reduced, and so its gradient."""
+
+    @staticmethod
+    def forward(ctx, y):
+        out = _summed(y)
+        return out.view_as(out) if out is y else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g)
+
+
+def _reduced(y: torch.Tensor) -> torch.Tensor:
+    """A product that DTensor leaves as a partial sum over some mesh
+    dimensions (a row-parallel weight: the contraction is sharded)
+    reduced there, where GSPMD reduces it: before the norm or the
+    nonlinearity that reads it; and the gradient that comes back to it
+    likewise.  DTensor would carry a partial sum on through the residual
+    stream (forward or backward), and the next product, unable to take a
+    partial operand with a weight sharded over the same mesh dimension,
+    would gather that weight whole."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(y, DTensor) or y.device_mesh.size() == 1:
+        return y
+    return _Reduced.apply(y)
 
 
 class RMSNorm(nn.Module):
@@ -132,17 +171,6 @@ def _block(w, wp, xp):
     return w.redistribute(w.device_mesh, wp).to_local(grad_placements=gp)
 
 
-def _block_start(mesh, placements, dim: int, local: int) -> int:
-    """The global index of the first entry of this rank's block of
-    tensor dimension `dim` (`local` entries) under `placements`."""
-    from torch.distributed.tensor import Shard
-    lo = 0
-    for md, p in enumerate(placements):
-        if p == Shard(dim):
-            lo = lo * mesh.size(md) + mesh.get_local_rank(md)
-    return lo * local
-
-
 def _gold(logits, labels):
     """logits[..., labels]: the gold logit of each position.  DTensor's
     rule for a gather along a dimension sharded over the vocabulary
@@ -153,6 +181,7 @@ def _gold(logits, labels):
     and the partial sums are reduced over the vocabulary's mesh
     dimension."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from ..train.meshctx import block_start
     if not isinstance(logits, DTensor):
         return torch.gather(logits, -1, labels[..., None])[..., 0]
     mesh, last = logits.device_mesh, logits.ndim - 1
@@ -164,7 +193,7 @@ def _gold(logits, labels):
                                     run_check=False)
     ll = logits.redistribute(mesh, lp).to_local()
     lab = labels.redistribute(mesh, rp).to_local()
-    lo = _block_start(mesh, lp, last, ll.shape[-1])
+    lo = block_start(mesh, lp, last, ll.shape[-1])
     mine = (lab >= lo) & (lab < lo + ll.shape[-1])
     g = torch.gather(ll, -1, torch.where(mine, lab - lo, 0)[..., None]
                      )[..., 0] * mine
@@ -184,6 +213,7 @@ def _local_embedding(ids, w):
     vocabulary rows (zeros elsewhere), and the partial sums are reduced
     over the vocabulary's mesh dimension."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from ..train.meshctx import block_start
     mesh = w.device_mesh
     if not isinstance(ids, DTensor):
         ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
@@ -193,7 +223,7 @@ def _local_embedding(ids, w):
                for p, q in zip(w.placements, ip))
     il = ids.redistribute(mesh, ip).to_local()
     wl = _block(w, wp, ip)
-    lo = _block_start(mesh, wp, 0, wl.shape[0])
+    lo = block_start(mesh, wp, 0, wl.shape[0])
     mine = (il >= lo) & (il < lo + wl.shape[0])
     y = F.embedding(torch.where(mine, il - lo, 0), wl) \
         * mine[..., None].to(wl.dtype)
@@ -234,16 +264,25 @@ def _product(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _local_product(x2, w):
     """`_product` of two DTensors.  DTensor has no rule for the product
     with a float32 output (aten.mm.dtype), so it runs on local blocks: x2's
-    rows keep their shards (its other placements are made replicated), w's
-    rows (the vocabulary) keep theirs on the mesh dimensions that do not
-    shard x2's rows, and w is gathered over the others (the plan's FSDP
-    gather over "data": never over the model axis that shards the
-    vocabulary).  The float32 product is a DTensor sharded as those two."""
+    rows keep their shards (its other placements are made replicated), and
+    w's rows (the vocabulary) are sharded over every mesh dimension that
+    does not shard x2's rows (w gathered over the others: the plan's FSDP
+    gather), so each rank computes its rows' logits over its block of the
+    vocabulary, the layout that the loss's anchor asks for (batch over
+    the data axes, vocabulary over "model").  Where the vocabulary does
+    not divide that many blocks, w keeps only the shards of its rows that
+    it has on those mesh dimensions.  The float32 product is a DTensor
+    sharded as those two."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = x2.device_mesh
     xp = tuple(p if p == Shard(0) else Replicate() for p in x2.placements)
-    wp = tuple(Shard(0) if p == Shard(0) and q != Shard(0) else Replicate()
-               for p, q in zip(w.placements, xp))
+    ways = math.prod(mesh.size(md) for md, q in enumerate(xp)
+                     if q != Shard(0))
+    if w.shape[0] % ways == 0:
+        wp = tuple(Replicate() if q == Shard(0) else Shard(0) for q in xp)
+    else:
+        wp = tuple(Shard(0) if p == Shard(0) and q != Shard(0)
+                   else Replicate() for p, q in zip(w.placements, xp))
     yp = tuple(Shard(0) if q == Shard(0) else Shard(1) if p == Shard(0)
                else Replicate() for p, q in zip(wp, xp))
     y = _product(x2.redistribute(mesh, xp).to_local(),
@@ -346,6 +385,20 @@ def check_model(params, cfg) -> None:
     if built != cfg:
         raise ValueError(f"the model was built for {params.cfg.name!r}, "
                          f"not {cfg.name!r}")
+
+
+def serving(fn):
+    """A family's `prefill` or `decode_step`: under `torch.no_grad`, and
+    on parameters placed on a mesh (`train_step.place_state`) with the
+    plain tensors it makes (positions, masks, fresh states) counted as
+    replicated, as the train step counts them."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with torch.no_grad(), implicit_replication():
+            return fn(*args, **kwargs)
+    return run
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -456,15 +509,26 @@ def run_layers(fns, carry, groups, remat: bool):
             carry = f(carry)
         return carry
 
-    def layer(i, c):
-        return checkpoint(fns[i], c, use_reentrant=False)
+    def ckpt(fn, c):
+        # a tuple carry's tensors go in as the checkpoint's own arguments:
+        # an inner checkpoint saves its tensor arguments to the enclosing
+        # one, but (torch 2.13) not a tensor inside a tuple, and then the
+        # group's checkpoint never recomputes and each layer's checkpoint
+        # keeps its own input alive: one level of remat, not two
+        if isinstance(c, tuple):
+            @functools.wraps(fn)
+            def unpacked(*t):
+                return fn(t)
+            return checkpoint(unpacked, *c, use_reentrant=False)
+        return checkpoint(fn, c, use_reentrant=False)
 
-    def group_fn(idx, c):
-        for i in idx:
-            c = layer(i, c)
-        return c
+    def group(idx):
+        def group_fn(c):
+            for i in idx:
+                c = ckpt(fns[i], c)
+            return c
+        return group_fn
 
     for idx in groups:
-        carry = layer(idx[0], carry) if len(idx) == 1 else \
-            checkpoint(group_fn, idx, carry, use_reentrant=False)
+        carry = ckpt(fns[idx[0]] if len(idx) == 1 else group(idx), carry)
     return carry

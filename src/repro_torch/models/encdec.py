@@ -30,7 +30,8 @@ from torch import nn
 from ..device import resolve_device
 from .attention import Attention
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, build,
-                     check_model, on_device, remat_groups, run_layers)
+                     check_model, on_device, remat_groups, run_layers,
+                     serving)
 from .mlp import GatedMLP
 
 __all__ = ["EncBlock", "DecBlock", "EncDec", "init_params", "encode",
@@ -184,12 +185,14 @@ def init_cache(cfg, batch: int, cache_len: int, dtype, device=None,
             "xk": zeros(src_len), "xv": zeros(src_len)}
 
 
-@torch.no_grad()
+@serving
 def prefill(params: EncDec, tokens, cfg, cache_len: int, src_embeds=None,
             kv_chunk: int = 512, **_):
     """Encode the source, run the decoder's prompt; (last logits (B, 1, V),
     cache).  The self rings keep the last min(cache_len, S) positions at
-    p % cache_len."""
+    p % cache_len.  On placed parameters the cache is placed by the dry
+    run's cache rule (`meshctx.place_cache`)."""
+    from ..train.meshctx import place_cache, ring_slots, write
     check_model(params, cfg)
     if src_embeds is None:
         raise ValueError("the encdec family's prefill needs src_embeds")
@@ -197,23 +200,23 @@ def prefill(params: EncDec, tokens, cfg, cache_len: int, src_embeds=None,
     x = params.embed_inputs(tokens)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
-    cache = init_cache(cfg, B, cache_len, x.dtype, device=x.device,
-                       src_len=enc_out.shape[1])
+    cache = place_cache(init_cache(cfg, B, cache_len, x.dtype,
+                                   device=x.device,
+                                   src_len=enc_out.shape[1]), x)
     take = min(cache_len, S)
-    slots = torch.remainder(torch.arange(S - take, S, device=x.device),
-                            cache_len)
+    slots = ring_slots(S - take, S, cache_len, x)
     for i, bp in enumerate(params.dec):
         x, (k, v, xk, xv) = bp(x, enc_out, positions, kv_chunk,
                                with_cache=True)
-        cache["k"][i][:, slots] = k[:, S - take:]
-        cache["v"][i][:, slots] = v[:, S - take:]
-        cache["xk"][i] = xk
-        cache["xv"][i] = xv
+        write(cache["k"], k[:, S - take:], layer=i, dim=1, index=slots)
+        write(cache["v"], v[:, S - take:], layer=i, dim=1, index=slots)
+        write(cache["xk"], xk, layer=i)
+        write(cache["xv"], xv, layer=i)
     x = params.ln_f(x)
     return params.logits(x[:, -1:]), cache
 
 
-@torch.no_grad()
+@serving
 def decode_step(params: EncDec, token, cache: dict, pos: int, cfg):
     """One decode step.  token (B, 1); pos: the absolute position (an int);
     returns (logits (B, 1, V), cache), the self rings written in place."""

@@ -33,7 +33,7 @@ from torch import nn
 from ..device import resolve_device
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, _param,
                      build, check_model, normal_, remat_groups, rms_norm,
-                     run_layers, silu)
+                     run_layers, serving, silu)
 
 __all__ = ["SSDBlock", "Mamba2", "init_params", "forward", "loss_fn",
            "init_state", "prefill", "decode_step", "ssd_params_per_layer",
@@ -177,6 +177,10 @@ class SSDBlock(nn.Module):
             blk.weight(p, {}) for p in (self.conv_w, self.conv_b,
                                          self.A_log, self.D, self.dt_bias,
                                          self.ln_out.scale))
+        if conv_state is not None:
+            conv_state = blk.local(conv_state)
+        if ssd_state is not None:
+            ssd_state = blk.local(ssd_state)
         z, xr, Bm, Cm, dt = torch.split(
             blk.x, [d_inner, d_inner, N, N, H], dim=-1)
         xbc = torch.cat([xr, Bm, Cm], dim=-1)
@@ -211,7 +215,7 @@ class SSDBlock(nn.Module):
         out = residual + self.out_proj(blk.wrap(y))
         if conv_state is None:
             return out
-        return out, (new_conv, hT)
+        return out, (blk.wrap(new_conv), blk.wrap(hT))
 
 
 class Mamba2(LanguageModel):
@@ -286,32 +290,37 @@ def init_state(cfg, batch: int, dtype, device=None) -> dict:
     }
 
 
-@torch.no_grad()
+@serving
 def prefill(params: Mamba2, tokens, cfg, cache_len: int = 0,
             prefix_embeds=None, **_):
     """Run the prompt; (last logits (B, 1, V), state).  cache_len is
     unused (the state is O(1)).  Each block streams from a zero conv
-    state, so a one-token prompt takes the single-step branch."""
+    state, so a one-token prompt takes the single-step branch.  On placed
+    parameters the state is placed by the dry run's cache rule
+    (`meshctx.place_cache`)."""
+    from ..train.meshctx import place_cache, write
     check_model(params, cfg)
     x = params.embed_inputs(tokens, prefix_embeds)
-    state = init_state(cfg, x.shape[0], x.dtype, device=x.device)
+    state = place_cache(init_state(cfg, x.shape[0], x.dtype,
+                                   device=x.device), x)
     for i, bp in enumerate(params.blocks):
         x, (conv_s, ssd_s) = bp(x, conv_state=state["conv"][i])
-        state["conv"][i] = conv_s
-        state["ssd"][i] = ssd_s
+        write(state["conv"], conv_s, layer=i)
+        write(state["ssd"], ssd_s, layer=i)
     x = params.ln_f(x)
     return params.logits(x[:, -1:]), state
 
 
-@torch.no_grad()
+@serving
 def decode_step(params: Mamba2, token, state: dict, pos: int, cfg):
     """One decode step; returns (logits (B, 1, V), state), the state
     written in place.  pos is unused (the state holds the history)."""
+    from ..train.meshctx import write
     check_model(params, cfg)
     x = params.embed_inputs(token)
     for i, bp in enumerate(params.blocks):
         x, (conv_s, ssd_s) = bp(x, conv_state=state["conv"][i],
                                 ssd_state=state["ssd"][i])
-        state["conv"][i] = conv_s
-        state["ssd"][i] = ssd_s
+        write(state["conv"], conv_s, layer=i)
+        write(state["ssd"], ssd_s, layer=i)
     return params.logits(params.ln_f(x)), state

@@ -49,7 +49,7 @@ from ..device import resolve_device
 from .attention import Attention
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, _param,
                      build, check_model, normal_, recording, run_layers,
-                     silu)
+                     serving, silu)
 from .mlp import GatedMLP
 
 __all__ = ["RecLayer", "AttnLayer", "RecurrentGemma", "init_params",
@@ -332,38 +332,43 @@ def init_cache(cfg, batch: int, cache_len: int, dtype, device=None) -> list:
     return cache
 
 
-@torch.no_grad()
+@serving
 def prefill(params: RecurrentGemma, tokens, cfg, cache_len: int,
             prefix_embeds=None, kv_chunk: int = 512):
     """Run the prompt; (last logits (B, 1, V), cache).  An attention
-    layer's ring keeps the last min(ring, S) positions at p % ring."""
+    layer's ring keeps the last min(ring, S) positions at p % ring.  On
+    placed parameters the cache is placed by the dry run's cache rule
+    (`meshctx.place_cache`)."""
+    from ..train.meshctx import place_cache, ring_slots, write
     check_model(params, cfg)
     x = params.embed_inputs(tokens, prefix_embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
-    cache = init_cache(cfg, B, cache_len, x.dtype, device=x.device)
+    cache = place_cache(init_cache(cfg, B, cache_len, x.dtype,
+                                   device=x.device), x)
     win = _ring(cfg, cache_len)
     take = min(win, S)
-    slots = torch.remainder(torch.arange(S - take, S, device=x.device), win)
+    slots = ring_slots(S - take, S, win, x)
     for layer, c in zip(params.layers, cache):
         if isinstance(layer, RecLayer):
             x, (conv_s, h_s) = layer(x, conv_state=c["conv"])
-            c["conv"].copy_(conv_s)
-            c["h"].copy_(h_s)
+            write(c["conv"], conv_s)
+            write(c["h"], h_s)
         else:
             h, (k, v) = layer.attn(layer.ln1(x), positions,
                                    kv_chunk=kv_chunk, with_cache=True)
             x = layer.ffn(x + h)
-            c["k"][:, slots] = k[:, S - take:]
-            c["v"][:, slots] = v[:, S - take:]
+            write(c["k"], k[:, S - take:], dim=1, index=slots)
+            write(c["v"], v[:, S - take:], dim=1, index=slots)
     x = params.ln_f(x)
     return params.logits(x[:, -1:]), cache
 
 
-@torch.no_grad()
+@serving
 def decode_step(params: RecurrentGemma, token, cache: list, pos: int, cfg):
     """One decode step.  token (B, 1); pos: the absolute position (an int);
     returns (logits (B, 1, V), cache), the cache written in place."""
+    from ..train.meshctx import write
     check_model(params, cfg)
     pos = int(pos)
     x = params.embed_inputs(token)
@@ -371,8 +376,8 @@ def decode_step(params: RecurrentGemma, token, cache: list, pos: int, cfg):
         if isinstance(layer, RecLayer):
             x, (conv_s, h_s) = layer(x, conv_state=c["conv"],
                                      lru_state=c["h"])
-            c["conv"].copy_(conv_s)
-            c["h"].copy_(h_s)
+            write(c["conv"], conv_s)
+            write(c["h"], h_s)
         else:
             h, _, _ = layer.attn.decode(layer.ln1(x), c["k"], c["v"], pos)
             x = layer.ffn(x + h)

@@ -23,7 +23,7 @@ from torch import nn
 from ..device import resolve_device
 from .attention import Attention
 from .common import (DTYPES, Dense, Embedding, LanguageModel, RMSNorm, build,
-                     check_model, remat_groups, run_layers)
+                     check_model, remat_groups, run_layers, serving)
 from .mlp import GatedMLP, MoE
 
 __all__ = ["Block", "Transformer", "init_params", "forward", "loss_fn",
@@ -133,33 +133,35 @@ def init_cache(cfg, batch: int, cache_len: int, dtype, device=None) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-@torch.no_grad()
+@serving
 def prefill(params: Transformer, tokens, cfg, cache_len: int,
             prefix_embeds=None, kv_chunk: int = 512):
     """Run the prompt; (last logits (B, 1, V), cache).  Each layer's K/V go
     to ring slots (position p -> p % cache_len; the last cache_len
-    positions are kept)."""
+    positions are kept).  On placed parameters the cache is placed by the
+    dry run's cache rule (`meshctx.place_cache`)."""
+    from ..train.meshctx import place_cache, ring_slots, write
     check_model(params, cfg)
     x = params.embed_inputs(tokens, prefix_embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
-    cache = init_cache(cfg, B, cache_len, x.dtype, device=x.device)
+    cache = place_cache(init_cache(cfg, B, cache_len, x.dtype,
+                                   device=x.device), x)
     take = min(cache_len, S)
-    slots = torch.remainder(torch.arange(S - take, S, device=x.device),
-                            cache_len)
+    slots = ring_slots(S - take, S, cache_len, x)
     for i, bp in enumerate(params.blocks):
         h, (k, v) = bp.attn(bp.ln1(x), positions, kv_chunk=kv_chunk,
                             with_cache=True)
         x = x + h
         m, _ = bp.ffn(bp.ln2(x))
         x = x + m
-        cache["k"][i][:, slots] = k[:, S - take:]
-        cache["v"][i][:, slots] = v[:, S - take:]
+        write(cache["k"], k[:, S - take:], layer=i, dim=1, index=slots)
+        write(cache["v"], v[:, S - take:], layer=i, dim=1, index=slots)
     x = params.ln_f(x)
     return params.logits(x[:, -1:]), cache
 
 
-@torch.no_grad()
+@serving
 def decode_step(params: Transformer, token, cache: dict, pos: int, cfg):
     """One decode step.  token (B, 1); pos: the absolute position (an int);
     returns (logits (B, 1, V), cache), the cache written in place."""

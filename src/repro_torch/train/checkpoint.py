@@ -25,12 +25,18 @@ A placed state (`train_step.place_state`: DTensors on a mesh) is saved
 as the reference's sharded layout: each rank writes its own local blocks
 to `shard_<rank>.npz` (no tensor is gathered; `host_id` defaults to the
 rank), with each DTensor key's global shape, local shape and placements
-under `__layout__`, and its plain leaves (the step) whole.  Host 0
-commits the MANIFEST once every rank's shard is in the step's directory
-(it waits for the files, so no collective runs on the save thread).
-`restore` reads the rank's own shard into the state's local blocks: the
-state must be placed on a mesh of the same shape (a layout that differs
-raises ValueError).
+under `__layout__` (and the block's offset in the global tensor), and
+its plain leaves (the step) whole.  Host 0 commits the MANIFEST once
+every rank's shard is in the step's directory (it waits for the files, so
+no collective runs on the save thread).  `restore` reads the rank's own
+shard into the state's local blocks when the state is placed as the
+checkpoint was (the same shapes, placements and block offset, read from
+the rank's own shard); otherwise (another mesh shape, another world, an
+unplaced state) it rebuilds each global tensor from every rank's shard
+in the step's directory (each block at its offset) and copies in this
+rank's block of it under the state's placements, or all of it, as the
+reference's global arrays fill any mesh.  A global shape that differs
+raises ValueError.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["save", "restore", "latest_step", "Checkpointer"]
 
@@ -72,8 +78,25 @@ def _items(tree, prefix: str = ""):
 
 
 def _layout(t: DTensor) -> dict:
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    _, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
     return {"shape": list(t.shape), "local": list(t.to_local().shape),
-            "placements": [str(p) for p in t.placements]}
+            "placements": [str(p) for p in t.placements],
+            "offset": [int(o) for o in offset]}
+
+
+def _same_layout(saved: dict | None, t: DTensor) -> bool:
+    """Whether the saved block is this rank's block of t: the same global
+    and local shapes, placements and offset (a checkpoint written before
+    offsets were recorded is matched without one)."""
+    if saved is None:
+        return False
+    mine = _layout(t)
+    keys = ("shape", "local", "placements") + (
+        ("offset",) if "offset" in saved else ())
+    return all(saved.get(k) == mine[k] for k in keys)
 
 
 def _host(leaf):
@@ -196,26 +219,69 @@ def _same_shape(key: str, stored, want) -> None:
                          f"{tuple(stored)}, not {tuple(want)}")
 
 
+class _Shards:
+    """Every rank's shard of a step directory, opened on first use: the
+    global tensors of a placed checkpoint, rebuilt block by block."""
+
+    def __init__(self, d: Path):
+        self.dir, self.files = d, None
+
+    def whole(self, key: str, dtype: str) -> torch.Tensor:
+        if self.files is None:
+            self.files = []
+            for p in sorted(self.dir.glob("shard_*.npz")):
+                z = np.load(p)
+                self.files.append((z, json.loads(str(z[_LAYOUT]))))
+        out = None
+        for z, layout in self.files:
+            lay = layout[key]
+            if "offset" not in lay:
+                raise ValueError(f"checkpoint entry {key!r} has no block "
+                                 f"offsets; it restores only onto its "
+                                 f"own layout")
+            block = _loaded(z[key], dtype)
+            if out is None:
+                out = torch.empty(lay["shape"], dtype=block.dtype)
+            out[tuple(slice(o, o + n) for o, n in
+                      zip(lay["offset"], block.shape))] = block
+        return out
+
+    def close(self):
+        for z, _ in self.files or ():
+            z.close()
+
+
+def _cut(whole: torch.Tensor, t: DTensor) -> torch.Tensor:
+    """This rank's block of the global tensor `whole` under t's placements
+    (each rank cuts its own: no collective)."""
+    return distribute_tensor(whole, t.device_mesh, t.placements,
+                             src_data_rank=None).to_local()
+
+
 def _copy(t: torch.Tensor, arrays: dict, meta: tuple, key: str) -> None:
-    dtypes, layout = meta
-    src = _loaded(arrays[key], dtypes[key])
+    dtypes, layout, shards, mine = meta
+    saved = layout.get(key)
+    if isinstance(t, DTensor) and mine and _same_layout(saved, t):
+        src = _loaded(arrays[key], dtypes[key])       # this rank's block
+    else:
+        src = _loaded(arrays[key], dtypes[key]) if saved is None \
+            else shards.whole(key, dtypes[key])
+        _same_shape(key, src.shape, t.shape)
+        if isinstance(t, DTensor):
+            src = _cut(src.to(t.device), t)
     if isinstance(t, DTensor):
-        if layout.get(key) != _layout(t):
-            raise ValueError(f"checkpoint entry {key!r} was saved as "
-                             f"{layout.get(key)}, not {_layout(t)}")
         t = t.to_local()
-    elif key in layout:
-        raise ValueError(f"checkpoint entry {key!r} is a shard "
-                         f"{layout[key]}; the state is not placed")
     _same_shape(key, src.shape, t.shape)
     t.copy_(src)
 
 
 def restore(ckpt_dir: str | Path, state_like, step: int | None = None,
             host_id: int | None = None):
-    """Restore into the structure of `state_like` (shapes must match):
-    its tensors are overwritten in place (a DTensor's local block from
-    this rank's shard).  Returns (state, step)."""
+    """Restore into the structure of `state_like` (global shapes must
+    match): its tensors are overwritten in place (a DTensor's local block
+    from this rank's shard when the state is placed as the checkpoint
+    was, else cut from the global tensor rebuilt from every shard).
+    Returns (state, step)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -224,11 +290,20 @@ def restore(ckpt_dir: str | Path, state_like, step: int | None = None,
     d = ckpt_dir / f"step_{step:08d}"
     if not (d / "MANIFEST.json").exists():
         raise FileNotFoundError(f"uncommitted checkpoint {d}")
-    with np.load(d / f"shard_{_host_id(host_id)}.npz") as z:
+    own = d / f"shard_{_host_id(host_id)}.npz"
+    # a rank past the saver's world reads host 0's dtypes and plain leaves,
+    # never its blocks: each of its blocks is cut from the rebuilt tensor
+    mine = own.exists()
+    with np.load(own if mine else d / "shard_0.npz") as z:
         arrays = {k: z[k] for k in z.files}
     dtypes = json.loads(str(arrays.pop(_DTYPES)))
     layout = json.loads(str(arrays.pop(_LAYOUT, np.array("{}"))))
-    return _restore_into(state_like, arrays, (dtypes, layout)), step
+    shards = _Shards(d)
+    try:
+        return _restore_into(state_like, arrays,
+                             (dtypes, layout, shards, mine)), step
+    finally:
+        shards.close()
 
 
 class Checkpointer:

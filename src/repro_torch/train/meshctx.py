@@ -10,6 +10,11 @@ output that DTensor leaves partial (the row-parallel `o` projection, the
 vocabulary-parallel embedding) is reduced there, and the batch dimension
 is put back on the data-parallel axes.
 
+Serving on a mesh writes its caches and states in place through
+`write`, which acts on each rank's local block of a placed cache (cut by
+`place_cache`: the reference dry run's cache rule,
+`sharding.cache_spec`).
+
 Each anchor is the identity (the same tensor back) when no context is
 set, when the context's mesh has one device (a (1, 1) mesh), and on a
 tensor that is not a DTensor.  `set_mesh_context` takes a `DeviceMesh`
@@ -24,11 +29,12 @@ from torch.distributed.device_mesh import DeviceMesh
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from .sharding import axis_sizes, placements_for
+from .sharding import axis_sizes, cache_spec, placements_for
 
 __all__ = ["set_mesh_context", "clear_mesh_context", "constrain_batch",
            "constrain_tokens", "constrain_group_expert", "model_axis_size",
-           "mesh_context", "Local"]
+           "mesh_context", "Local", "place_cache", "write", "unshard",
+           "unshard_grad", "block_start", "placed_zeros"]
 
 _CTX: tuple | None = None
 
@@ -140,6 +146,153 @@ def constrain_batch(x, batch_dim: int = 0, model_dim: int | None = None,
     return _to(x, mesh, entries)
 
 
+def _replicated(t, mesh):
+    """t itself if a DTensor, else the plain tensor t as a replicated
+    DTensor on `mesh` (every rank holds the same t)."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def unshard(x, dim: int, n: int):
+    """x with its dimension `dim` made whole (replicated) where the mesh
+    shards it into blocks that do not divide `n` (the head count that a
+    reshape is about to split out of it); else x itself.  The reshard
+    that GSPMD inserts before such a reshape: DTensor's view rule keeps a
+    shard only on the first dimension of a split and refuses one that it
+    does not divide."""
+    if not isinstance(x, DTensor):
+        return x
+    dim = dim % x.ndim
+    mesh, sh = x.device_mesh, Shard(dim)
+    ways = math.prod(mesh.size(md) for md, p in enumerate(x.placements)
+                     if p == sh)
+    if n % ways == 0:
+        return x
+    return x.redistribute(mesh, tuple(Replicate() if p == sh else p
+                                      for p in x.placements))
+
+
+class _UnshardGrad(torch.autograd.Function):
+    """The identity, whose backward `unshard`s the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, n):
+        ctx.dim, ctx.n = dim, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unshard(g, ctx.dim, ctx.n), None, None
+
+
+def unshard_grad(x, dim: int, n: int):
+    """x, whose gradient is made whole along `dim` where the mesh shards
+    it into blocks that do not divide `n`: for a tensor merged from `n`
+    heads, whose gradient the backward splits into them again."""
+    if not isinstance(x, DTensor):
+        return x
+    return _UnshardGrad.apply(x, dim, n)
+
+
+def placed_zeros(t: torch.Tensor, mesh, pl) -> DTensor:
+    """Zeros of t's shape, dtype and device as a DTensor with the
+    placements `pl` on `mesh`, each rank allocating only its block (on the
+    meta device, nothing)."""
+    local = list(t.shape)
+    for md, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(md)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=t.dtype, device=t.device), mesh, pl,
+        run_check=False, shape=t.shape, stride=t.stride())
+
+
+def place_cache(cache, like):
+    """A cache or state tree (dicts and lists of tensors) for a forward
+    on `like`: the tree itself unless `like` is a DTensor, else zeros of
+    its leaves' shapes placed on like's mesh by the reference dry run's
+    cache rule (`sharding.cache_spec`)."""
+    if not isinstance(like, DTensor):
+        return cache
+    mesh = like.device_mesh
+
+    def one(t):
+        if isinstance(t, dict):
+            return {k: one(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [one(v) for v in t]
+        return placed_zeros(t, mesh,
+                            placements_for(cache_spec(t.shape, mesh), mesh))
+    return one(cache)
+
+
+def block_start(mesh, placements, dim: int, local: int) -> int:
+    """The global index of the first entry of this rank's block of tensor
+    dimension `dim` (`local` entries) under `placements` (even blocks)."""
+    lo = 0
+    for md, p in enumerate(placements):
+        if p == Shard(dim):
+            lo = lo * mesh.size(md) + mesh.get_local_rank(md)
+    return lo * local
+
+
+def ring_slots(start: int, stop: int, ring: int, like) -> torch.Tensor:
+    """The ring slots (p % ring) of positions start..stop-1, as the index
+    `write` takes: on like's device for a plain `like`, so that writing a
+    cache on the card waits on nothing; on the host for a DTensor, whose
+    `write` reads the positions to pick each rank's own."""
+    dev = "cpu" if isinstance(like, DTensor) else like.device
+    return torch.remainder(torch.arange(start, stop, device=dev), ring)
+
+
+def write(dst, src, layer: int | None = None, dim: int = 0, index=None):
+    """In place: `dst[layer]` (or dst) gets src along its dimension `dim`
+    at `index` (a slice, or a 1-D integer tensor of positions; None: the
+    whole of it).  On plain tensors that is the indexed assignment.  A
+    DTensor cache is written on each rank's local block: src is
+    redistributed to dst's shards of the dimensions it covers whole
+    (replicated on the others), and each rank writes the layer and the
+    positions that fall in its block.  A plain src next to a DTensor dst
+    counts as replicated."""
+    if not isinstance(dst, DTensor):
+        d = dst if layer is None else dst[layer]
+        if index is None:
+            d.copy_(src)
+            return
+        if isinstance(index, torch.Tensor):
+            index = index.to(d.device)
+        d[(slice(None),) * dim + (index,)] = src
+        return
+    mesh, pl = dst.device_mesh, tuple(dst.placements)
+    off = 0 if layer is None else 1
+    sel = None if index is None else dim + off
+    sp = tuple(Shard(p.dim - off) if isinstance(p, Shard) and p.dim != sel
+               and not (layer is not None and p.dim == 0) else Replicate()
+               for p in pl)
+    sl = _replicated(src, mesh).redistribute(mesh, sp).to_local()
+    dl = dst.to_local()
+    if layer is not None:
+        lo = block_start(mesh, pl, 0, dl.shape[0])
+        if not lo <= layer < lo + dl.shape[0]:
+            return
+        dl = dl[layer - lo]
+    if index is None:
+        dl.copy_(sl)
+        return
+    if isinstance(index, slice):
+        start, stop, _ = index.indices(dst.shape[sel])
+        pos = torch.arange(start, stop)
+    else:
+        pos = index.to("cpu")
+    lo = block_start(mesh, pl, sel, dl.shape[dim])
+    keep = (pos >= lo) & (pos < lo + dl.shape[dim])
+    if not bool(keep.any()):
+        return
+    if not bool(keep.all()):
+        sl = sl.index_select(dim, keep.nonzero()[:, 0].to(sl.device))
+    dl[(slice(None),) * dim + ((pos[keep] - lo).to(dl.device),)] = sl
 
 
 class Local:
@@ -174,6 +327,7 @@ class Local:
     def local(self, t):
         if self.mesh is None:
             return t
+        t = _replicated(t, self.mesh)
         if tuple(t.placements) != self.placements:
             t = t.redistribute(self.mesh, self.placements)
         return t.to_local()
@@ -186,6 +340,28 @@ class Local:
         stride = torch.empty(shape, device="meta").stride()
         return DTensor.from_local(t, self.mesh, self.placements,
                                   run_check=False, shape=shape, stride=stride)
+
+    def start(self, dim: int) -> int:
+        """The global index of this rank's first entry of x's dimension
+        `dim` (0 without a mesh)."""
+        if self.mesh is None:
+            return 0
+        return block_start(self.mesh, self.placements, dim,
+                            self.x.shape[dim])
+
+    def shared(self, t):
+        """t's local block with only this layout's shards of dim 0 (the
+        rows) kept and whole along the rest: what every rank of the
+        layout's other sharded mesh dimensions reads in full.  Its
+        gradient is a partial sum over those mesh dimensions."""
+        if self.mesh is None:
+            return t
+        t = _replicated(t, self.mesh)
+        rows = tuple(p if p == Shard(0) else Replicate()
+                     for p in self.placements)
+        gp = tuple(Partial() if p not in (Shard(0), Replicate()) else q
+                   for p, q in zip(self.placements, rows))
+        return t.redistribute(self.mesh, rows).to_local(grad_placements=gp)
 
     def weight(self, w, align: dict):
         """w's local block for a product with this layout's local block:

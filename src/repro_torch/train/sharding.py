@@ -26,7 +26,8 @@ import re
 from torch.distributed.tensor import Replicate, Shard
 
 __all__ = ["RULES", "param_specs", "param_placements", "placements_for",
-           "batch_specs", "logical_rules", "spec_for_path", "axis_sizes"]
+           "batch_specs", "cache_spec", "logical_rules", "spec_for_path",
+           "axis_sizes"]
 
 # (path regex, spec for the UNSTACKED tensor, applied right-aligned)
 RULES: list[tuple[str, tuple]] = [
@@ -119,6 +120,40 @@ def batch_specs(mesh_shape, multi_pod: bool | None = None) -> tuple:
     if multi_pod is None:
         multi_pod = "pod" in axis_sizes(mesh_shape)
     return ("pod", "data") if multi_pod else ("data",)
+
+
+def cache_spec(shape, mesh_shape, seq_axis: str = "model") -> tuple:
+    """The spec of one KV-cache or state leaf of `shape`: the reference
+    dry run's `_cache_shardings` rule (`repro/launch/dryrun.py:105-129`),
+    rule for rule.  KV caches (L, B, S, K, hd): the batch over the batch
+    axes and the sequence over `seq_axis`, each when divisible; a 4-D
+    leaf (B, win, K, hd): dim 0 over the batch axes, dim 1 over
+    `seq_axis` when divisible and at least 1024 long; other leaves of two
+    or more dims (conv, SSD and LRU states): the batch-like leading dim
+    (dim 1 when a 3+-D leaf's dim 0 is at most 64) over the batch
+    axes."""
+    sizes = axis_sizes(mesh_shape)
+    bspec = batch_specs(mesh_shape)
+    dsz = 1
+    for a in bspec:
+        dsz *= sizes[a]
+    msz = sizes[seq_axis]
+    entries: list = [None] * len(shape)
+    if len(shape) == 5:
+        if shape[1] % dsz == 0:
+            entries[1] = bspec
+        if shape[2] % msz == 0:
+            entries[2] = seq_axis
+    elif len(shape) == 4:
+        if shape[0] % dsz == 0:
+            entries[0] = bspec
+        if shape[1] % msz == 0 and shape[1] >= 1024:
+            entries[1] = seq_axis
+    elif len(shape) >= 2:
+        lead = 1 if len(shape) >= 3 and shape[0] <= 64 else 0
+        if shape[lead] % dsz == 0:
+            entries[lead] = bspec
+    return tuple(entries)
 
 
 def logical_rules(mesh_shape=None) -> dict:  # documentation helper

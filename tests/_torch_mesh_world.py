@@ -22,7 +22,19 @@ PORTS, one a run): a straight run, a run aborted after ABORT_AFTER steps,
 and its `--resume`.  Each rank writes `<case>.rank<r>.npz` (losses, grad
 norms, the parameters gathered after the last step) and `rank<r>.json`
 (each case's local shard shapes and storage sizes, placements, and the
-launch runs' losses) into OUT_DIR; the test judges them.  Imports torch
+launch runs' losses) into OUT_DIR; the test judges them.  CASES "heads"
+(4 ranks) trains the HEADS_ARCHS, whose KV-head counts the model axis
+does not divide, on the (1, 4) mesh as "train" does.  CASES "serve" (2
+ranks) runs `prefill` and SERVE_DECODE `decode_step`s of the FAMILIES on
+parameters placed on (1, 2) and on (2, 1), with the prompt placed by
+`place_batch`, and writes the logits and the whole cache or state after
+each call, gathered (`serve_<arch>_<shape>.rank<r>.npz`).  CASES
+"restore" (2 ranks) saves a placed state of FAMILIES[0] after one step
+on (2, 1) (its gathered arrays in `saved.npz`), then restores it into a
+fresh state placed on (1, 2) (`restored.rank<r>.npz`).  The CASES of
+MOE_RESTORE save the reduced MoE after one step on (2, 1) and on (2, 2)
+and restore each onto another layout: (2, 1) onto (4, 1), (2, 2) onto
+(2, 1).  Imports torch
 and the port only (the helpers at the end, which the tests import to
 judge the worlds, import the reference inside the functions that use
 it).
@@ -55,6 +67,17 @@ MESHES = {2: [(("data", "model"), (2, 1)), (("data", "model"), (1, 2))],
           4: [(("data", "model"), (2, 2)), POD_MESH]}
 LAUNCH_ARCH, LAUNCH_STEPS, ABORT_AFTER, CKPT_EVERY = \
     "internlm2-1.8b", 20, 10, 5
+HEADS_ARCHS = ["internlm2-1.8b", "llama3-8b", "qwen2-7b"]
+HEADS_MESH = (("data", "model"), (1, 4))
+SERVE_PROMPT, SERVE_CACHE, SERVE_DECODE = 12, 16, 3
+# the MoE's checkpoint across layouts, three worlds in this order, each a
+# list of (saved on, restore onto) or (None, save on) meshes: its router
+# (("data", None)) is placed alike on (2, 2) and (2, 1), its blocks at
+# other offsets
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_RESTORE = {"moe_save2": [(None, (2, 1))],
+               "moe4": [((2, 1), (4, 1)), (None, (2, 2))],
+               "moe_load2": [((2, 2), (2, 1))]}
 
 
 def opt_config():
@@ -183,6 +206,166 @@ def launch_runs(rank, world, out, ports, res):
                            (out / "ck_straight" / "step_00000020").iterdir())
 
 
+def serve_inputs(cfg):
+    """The prompt (BATCH, SERVE_PROMPT) and its src_embeds or
+    prefix_embeds, and SERVE_DECODE decode tokens (BATCH, 1), from SEED."""
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, (BATCH, SERVE_PROMPT))
+    extra = {}
+    if cfg.family == "encdec":
+        extra["src_embeds"] = rng.standard_normal(
+            (BATCH, SERVE_PROMPT, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend != "none":
+        extra["prefix_embeds"] = rng.standard_normal(
+            (BATCH, cfg.frontend_positions, cfg.d_model)).astype(np.float32)
+    steps = rng.integers(0, cfg.vocab, (SERVE_DECODE, BATCH, 1))
+    return toks, extra, steps
+
+
+def _gathered(t) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().numpy().copy()      # a decode writes in place
+
+
+def _leaves(tree, prefix):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def serve_run(cfg, params, place=None) -> dict:
+    """`prefill`, then SERVE_DECODE `decode_step`s; {name: array} of the
+    logits and every cache leaf after each call (gathered).  `place`
+    places a batch dict (`place_batch` on a mesh)."""
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    toks, extra, steps = serve_inputs(cfg)
+    place = place or (lambda b: b)
+    b = place({"tokens": torch.from_numpy(toks),
+               **{k: torch.from_numpy(v) for k, v in extra.items()}})
+    logits, cache = model.prefill(params, b["tokens"], cfg,
+                                  cache_len=SERVE_CACHE,
+                                  **{k: b[k] for k in extra})
+    out = {"prefill/logits": _gathered(logits)}
+    out.update({k: _gathered(v) for k, v in _leaves(cache, "prefill")})
+    pos = SERVE_PROMPT + (cfg.frontend_positions
+                          if "prefix_embeds" in extra else 0)
+    for i, tok in enumerate(steps):
+        t = place({"t": torch.from_numpy(tok)})["t"]
+        logits, cache = model.decode_step(params, t, cache, pos + i, cfg)
+        out[f"decode{i}/logits"] = _gathered(logits)
+        out.update({k: _gathered(v) for k, v in
+                    _leaves(cache, f"decode{i}")})
+    return out
+
+
+def serve_case(rank, names, shape, arch, out):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import meshctx
+    from repro_torch.train.sharding import batch_specs
+    from repro_torch.train.train_step import (init_state, place_batch,
+                                              place_state)
+    cfg = get_reduced(arch)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+    params = place_state(init_state(SEED, cfg, device="cpu"),
+                         mesh)["params"]
+    with meshctx.mesh_context(mesh, batch_specs(mesh)):
+        arrays = serve_run(cfg, params, lambda b: place_batch(b, mesh))
+    np.savez(out / f"serve_{case_key(arch, shape)}.rank{rank}.npz",
+             **arrays)
+
+
+def state_arrays(state) -> dict:
+    """{key: gathered array} of a train state (parameters, m, v, step)."""
+    arrays = {f"params/{n}": _gathered(p)
+              for n, p in state["params"].named_parameters()}
+    for which in ("m", "v"):
+        arrays.update({f"{which}/{n}": _gathered(t)
+                       for n, t in state["opt"][which].items()})
+    arrays["step"] = state["opt"]["step"].numpy()
+    return arrays
+
+
+def restore_case(rank, out):
+    """Save a placed state on (2, 1); restore it onto (1, 2)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import meshctx
+    from repro_torch.train.sharding import batch_specs
+    from repro_torch.train.train_step import (init_state, make_train_step,
+                                              place_state)
+    cfg = get_reduced(FAMILIES[0])
+    names = ("data", "model")
+    mesh = init_device_mesh("cpu", (2, 1), mesh_dim_names=names)
+    state = place_state(init_state(SEED, cfg, device="cpu"), mesh)
+    with meshctx.mesh_context(mesh, batch_specs(mesh)):
+        state, _ = make_train_step(cfg, opt_config())(state,
+                                                      batches(cfg)[0])
+    ckpt.save(out / "ck", 1, state)
+    saved = state_arrays(state)
+    if rank == 0:
+        np.savez(out / "saved.npz", **saved)
+    dist.barrier()                       # the MANIFEST is committed
+    other = init_device_mesh("cpu", (1, 2), mesh_dim_names=names)
+    fresh = place_state(init_state(SEED + 1, cfg, device="cpu"), other)
+    fresh, step = ckpt.restore(out / "ck", fresh)
+    assert step == 1
+    np.savez(out / f"restored.rank{rank}.npz", **state_arrays(fresh))
+
+
+def _shape_tag(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def moe_save(rank, out, shape):
+    """One step of the reduced MoE placed on (data, model) = shape, saved
+    to `ck_<shape>` (its gathered arrays in `saved_<shape>.npz`)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import meshctx
+    from repro_torch.train.sharding import batch_specs
+    from repro_torch.train.train_step import (init_state, make_train_step,
+                                              place_state)
+    cfg = get_reduced(MOE_ARCH)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    state = place_state(init_state(SEED, cfg, device="cpu"), mesh)
+    with meshctx.mesh_context(mesh, batch_specs(mesh)):
+        state, _ = make_train_step(cfg, opt_config())(state,
+                                                      batches(cfg)[0])
+    ckpt.save(out / f"ck_{_shape_tag(shape)}", 1, state)
+    saved = state_arrays(state)
+    if rank == 0:
+        np.savez(out / f"saved_{_shape_tag(shape)}.npz", **saved)
+    dist.barrier()                       # the MANIFEST is committed
+
+
+def moe_restore(rank, out, saved_on, shape):
+    """Restore `ck_<saved_on>` into a fresh reduced MoE state placed on
+    (data, model) = shape (`restored_<saved_on>_<shape>.rank<r>.npz`,
+    gathered)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import init_state, place_state
+    cfg = get_reduced(MOE_ARCH)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    fresh = place_state(init_state(SEED + 1, cfg, device="cpu"), mesh)
+    fresh, step = ckpt.restore(out / f"ck_{_shape_tag(saved_on)}", fresh)
+    assert step == 1
+    np.savez(out / f"restored_{_shape_tag(saved_on)}_{_shape_tag(shape)}"
+                   f".rank{rank}.npz", **state_arrays(fresh))
+
+
 def worker(rank: int, world: int, out: str, cases: str, ports: list):
     torch.set_num_threads(1)
     out = Path(out)
@@ -191,17 +374,37 @@ def worker(rank: int, world: int, out: str, cases: str, ports: list):
         launch_runs(rank, world, out, ports, res)
     else:
         dist.init_process_group(
-            "gloo", init_method=f"file://{out / 'store'}", rank=rank,
+            "gloo", init_method=f"file://{out / f'store.{cases}'}",
+            rank=rank,
             world_size=world,
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
         try:
-            for names, shape in MESHES[world]:
-                for arch in FAMILIES:
-                    train_case(rank, names, shape, arch, out, False, res)
-            if world == 4:
+            if cases == "heads":
+                for arch in HEADS_ARCHS:
+                    train_case(rank, *HEADS_MESH, arch, out, False, res)
+            elif cases == "serve":
+                for names, shape in MESHES[world]:
+                    for arch in FAMILIES:
+                        serve_case(rank, names, shape, arch, out)
+            elif cases == "restore":
+                restore_case(rank, out)
+            elif cases in MOE_RESTORE:
+                for saved_on, shape in MOE_RESTORE[cases]:
+                    if saved_on is None:
+                        moe_save(rank, out, shape)
+                    else:
+                        moe_restore(rank, out, saved_on, shape)
+            else:
+                for names, shape in MESHES[world]:
+                    for arch in FAMILIES:
+                        train_case(rank, names, shape, arch, out, False,
+                                   res)
+            if world == 4 and cases == "train":
                 names, shape = POD_MESH
                 train_case(rank, names, shape, FAMILIES[0], out, True, res)
                 compress_case(rank, out, res)
+            # no rank tears its group down while another still talks to it
+            dist.barrier()
         finally:
             dist.destroy_process_group()
     (out / f"rank{rank}.json").write_text(json.dumps(res))
@@ -211,6 +414,7 @@ def worker(rank: int, world: int, out: str, cases: str, ports: list):
 
 LOSS_RTOL = 1e-5
 PARAM_RTOL = 1e-4
+SERVE_RTOL = 1e-4
 COMPRESS_ATOL = 1e-6
 WORLD_TIMEOUT_S = 600
 

@@ -29,7 +29,11 @@ instead of hanging), one-rank failures inside a build: a measured tune
 whose candidate's sweep fails before its first allocation on the last
 rank alone (`faults.fail_measurement`), the same in the
 preconditioner's measured pair mode, and a cache hit whose schedule digest fails on the last rank
-alone; each followed by a solve.  Imports torch and the port only.
+alone; each followed by a solve.  CASES "after" runs, in the same kind
+of process group, a measured tune whose candidate's sweep fails on the
+last rank alone after its last sharded call (so no collective of the
+sweep can carry the failure; `fail_after_last_sharded_call`), followed
+by a solve.  Imports torch and the port only.
 """
 import contextlib
 import datetime
@@ -81,12 +85,15 @@ def worker(rank: int, world: int, out: str, device: str,
            cases: str = "solve") -> None:
     torch.set_num_threads(1)
     os.environ["REPRO_TORCH_CACHE_DIR"] = str(Path(out) / "cache")
-    timeout = {} if cases != "build" else {
+    timeout = {} if cases not in ("build", "after") else {
         "timeout": datetime.timedelta(seconds=BUILD_TIMEOUT_S)}
     dist.init_process_group("gloo", init_method=f"file://{out}/store",
                             rank=rank, world_size=world, **timeout)
     try:
-        {"serve": serve, "build": build}.get(cases, run)(rank, out, device)
+        {"serve": serve, "build": build, "after": after}.get(cases, run)(
+            rank, out, device)
+        # no rank tears its group down while another still talks to it
+        dist.barrier()
     finally:
         dist.destroy_process_group()
     if cases == "serve":
@@ -96,6 +103,7 @@ def worker(rank: int, world: int, out: str, device: str,
             timeout=datetime.timedelta(seconds=IDLE_TIMEOUT_S))
         try:
             idle(rank, out, device)
+            dist.barrier()
         finally:
             dist.destroy_process_group()
 
@@ -180,6 +188,58 @@ def build(rank: int, out: str, device: str) -> None:
     arrays["x_digest"] = op.solve(b)
     res["hit_source"] = plain(cache=True).stats.cache_source
     np.savez(Path(out) / f"rank{rank}.npz", **arrays)
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+@contextlib.contextmanager
+def fail_after_last_sharded_call(armed: bool):
+    """With `armed`, this rank's first composed sweep inside the context
+    raises after it returns: after its last sharded call, which every
+    rank has made, so only the caller's agreement can carry the failure
+    to the other ranks."""
+    from repro_torch.solver import operator as O
+    real, left = O.compose_sweep_fn, [1]
+
+    def compose(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def sweep(v):
+            x = fn(v)
+            if armed and left[0]:
+                left[0] = 0
+                raise RuntimeError("injected failure after the sweep's "
+                                   "last sharded call")
+            return x
+        return sweep
+
+    O.compose_sweep_fn = compose
+    try:
+        yield
+    finally:
+        O.compose_sweep_fn = real
+
+
+def after(rank: int, out: str, device: str) -> None:
+    """A measured tune whose first candidate sweep fails on the last rank
+    alone after the sweep's last sharded call, then a solve that every
+    rank serves."""
+    from repro_torch.solver import TriangularOperator
+    from repro_torch.solver.distributed import default_mesh
+    from repro_torch.sparse import generators
+
+    mesh = default_mesh(device_type=device)
+    last = dist.get_world_size() - 1
+    L = generators.random_lower(400, avg_offdiag=2.0, seed=3, max_back=24)
+    b = np.random.default_rng(0).standard_normal(400)
+    res = {}
+    with fail_after_last_sharded_call(rank == last):
+        res["tune"] = failed(lambda: TriangularOperator.from_csr(
+            L, tune="auto", chunk=32, max_deps=4, mesh=mesh,
+            measure_top_k=2, cache=False))
+    x = TriangularOperator.from_csr(
+        L, tune="no_rewriting", chunk=32, max_deps=4, mesh=mesh,
+        cache=False).solve(b)
+    np.savez(Path(out) / f"rank{rank}.npz", x_after_tune=x)
     (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
 
 

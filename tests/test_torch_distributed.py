@@ -28,6 +28,7 @@ marked `cuda` run on a card (a world of one, NCCL or gloo) and skip here;
 JAX is imported only inside the tests that hold the port against the
 reference.
 """
+import gc
 import json
 import os
 import signal
@@ -82,7 +83,12 @@ def _world_of_one(backend="gloo"):
 
 @pytest.fixture
 def world1():
-    """A world of one gloo rank and its default mesh, destroyed after."""
+    """A world of one gloo rank and its default mesh, destroyed after.
+    The earlier tests' garbage is collected first, so that none of their
+    schedules dies during this test (leaving a dead entry in the
+    registered sharded engine's memo, which drops such entries when it
+    next adds one)."""
+    gc.collect()
     _world_of_one()
     try:
         yield D.default_mesh()
@@ -727,6 +733,25 @@ def test_one_rank_failures_inside_a_build_are_agreed(tmp_path):
     assert res0["digest_source"] == "built"
     assert res0["hit_source"] == "memory"
     assert _rel(arrs0["x_digest"], solve_csr_seq(L, b)) < 1e-10
+
+
+def test_one_rank_failing_after_its_last_sharded_call_is_agreed(tmp_path):
+    """Two gloo ranks whose collectives time out: a measured tune whose
+    first candidate sweep fails on rank 1 alone after the sweep's last
+    sharded call (no collective of the sweep is left to carry it) raises
+    the same ShardedCallError on both ranks, naming rank 1, and the next
+    build and solve serve on both."""
+    ranks = _run_world(2, tmp_path / "after", "after")
+    (arrs0, res0), (arrs1, res1) = ranks
+    assert res0 == res1
+    kind, failures = res0["tune"]
+    assert kind == "ShardedCallError", res0["tune"]
+    assert [r for r, _ in failures] == [1]
+    assert "after the sweep's last sharded call" in failures[0][1]
+    assert np.array_equal(arrs0["x_after_tune"], arrs1["x_after_tune"])
+    L = generators.random_lower(400, avg_offdiag=2.0, seed=3, max_back=24)
+    b = np.random.default_rng(0).standard_normal(400)
+    assert _rel(arrs0["x_after_tune"], solve_csr_seq(L, b)) < 1e-10
 
 
 def test_sharded_service_world(tmp_path):

@@ -1,5 +1,5 @@
-"""The port, its examples and chip_smoke.py import neither JAX nor the
-JAX package.
+"""The port, its examples, chip_smoke.py and tools/op_stream.py import
+neither JAX nor the JAX package.
 
 An AST scan finds no `jax` and no `repro` import in their sources, and a
 subprocess that blocks both on `sys.meta_path` imports every module of
@@ -24,7 +24,9 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
+# tools/op_stream.py: the port's tracing script
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES \
+    + [ROOT / "tools" / "op_stream.py"]
 BLOCKED = ("jax", "jaxlib", "repro")
 
 
@@ -52,6 +54,12 @@ def test_the_mesh_modules_are_scanned():
     names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
     assert {"train/sharding.py", "train/meshctx.py",
             "launch/mesh.py"} <= names
+
+
+def test_the_dry_run_modules_are_scanned():
+    """The dry run's modules are among the scanned sources."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"launch/dryrun.py", "launch/op_analysis.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -100,7 +108,9 @@ print(len(names))
                  "repro_torch.train.compression",
                  "repro_torch.train.resilience",
                  "repro_torch.train.train_step",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.op_analysis"):
         assert name in imported, name
 
 

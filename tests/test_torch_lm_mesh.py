@@ -29,6 +29,14 @@ CPU.
 * `compressed_psum_tree` under the pod mesh equals numpy's computation of
   the reference's formula over each rank's pod group within
   W.COMPRESS_ATOL, and the default group (every rank) differs from it.
+* Serving on placed parameters (a 2-rank world, "serve"): for one reduced
+  config of each family on (1, 2) and (2, 1), `prefill`'s logits and its
+  whole cache or state, and the same after each of three `decode_step`s
+  (the cache placed by the dry run's rule), within W.SERVE_RTOL of each
+  array's scale of the unplaced calls, the ranks bitwise alike.
+* A placed checkpoint restores onto another layout (a 2-rank world,
+  "restore"): saved on (2, 1), restored onto (1, 2) on both ranks and
+  onto an unplaced state here, bitwise the saved state each time.
 * `launch.train.main` on 2 ranks (torchrun's variables): each rank returns
   the one-rank run's losses (W.LOSS_RTOL), and an abort after 10 steps plus
   `--resume` (from the checkpoint after step 5) gives the straight run's
@@ -325,3 +333,45 @@ def test_launch_train_on_two_ranks_trains_aborts_and_resumes(tmp_path,
     for got, ref in zip(res["resumed"], res["straight"][start:]):
         assert W.rel(got, ref) <= W.LOSS_RTOL
     assert W.rel(res["resumed"][-1], res["straight"][-1]) <= W.LOSS_RTOL
+
+
+def test_prefill_and_decode_on_placed_parameters(tmp_path):
+    from repro_torch.train.train_step import init_state
+    out = tmp_path / "serve"
+    W.run_world(2, out, "serve")
+    for arch in W.FAMILIES:
+        cfg = get_reduced(arch)
+        want = W.serve_run(cfg, init_state(W.SEED, cfg, device="cpu")
+                           ["params"])
+        assert any(k.startswith("decode2/") for k in want)
+        for _, shape in W.MESHES[2]:
+            key = f"serve_{W.case_key(arch, shape)}"
+            z = [np.load(out / f"{key}.rank{r}.npz") for r in range(2)]
+            assert set(z[0].files) == set(want), key
+            for k, ref in want.items():
+                assert np.array_equal(z[0][k], z[1][k]), (key, k)
+                err = np.abs(z[0][k] - ref).max()
+                assert err <= W.SERVE_RTOL * max(np.abs(ref).max(), 1e-30), \
+                    (key, k, err)
+
+
+def test_a_placed_checkpoint_restores_onto_another_layout(tmp_path):
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import init_state
+    out = tmp_path / "restore"
+    W.run_world(2, out, "restore")
+    saved = np.load(out / "saved.npz")
+    assert int(saved["step"]) == 1
+    for r in range(2):
+        got = np.load(out / f"restored.rank{r}.npz")
+        assert set(got.files) == set(saved.files)
+        for k in saved.files:
+            assert np.array_equal(got[k], saved[k]), (r, k)
+    cfg = get_reduced(W.FAMILIES[0])
+    state, step = ckpt.restore(out / "ck",
+                               init_state(W.SEED + 1, cfg, device="cpu"))
+    assert step == 1
+    got = W.state_arrays(state)
+    assert set(got) == set(saved.files)
+    for k in saved.files:
+        assert np.array_equal(got[k], saved[k]), k

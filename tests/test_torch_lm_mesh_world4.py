@@ -24,6 +24,16 @@ and json files that the test judges):
   difference of about lr; the dense config has no zero-initialized leaf
   whose scale after 3 steps is that small (the others' conv biases,
   A_log and dt_bias are), so its bounds hold;
+* internlm2 (4 query heads, 2 KV heads) and llama3 (8 and 2) on the
+  (1, 4) mesh ("heads"), where the model axis divides the k and v
+  projections' columns but not their KV heads: the same bounds against
+  the one-device step;
+* the reduced MoE's placed checkpoint (W.MOE_RESTORE, three worlds):
+  saved after one step on (2, 1) and restored onto (4, 1), saved on
+  (2, 2) and restored onto (2, 1), where its router and the router's
+  Adam moments keep their placements and local shapes but not their
+  block offsets: every rank's restored state gathers bitwise to the
+  saved one;
 * `compressed_psum_tree` under the pod mesh equals numpy's computation of
   the reference's formula over each rank's pod group (the ranks with its
   data coordinate) within W.COMPRESS_ATOL (1e-6), and the default group
@@ -75,6 +85,39 @@ def test_four_rank_meshes_equal_one_device_and_the_reference(tmp_path):
     W.judge(out, ranks, W.case_key(W.FAMILIES[0], shape, True), dense,
             dict(zip(names, shape)), want)
     _judge_compress(out, ranks)
+
+
+def test_a_model_axis_that_does_not_divide_the_kv_heads(tmp_path):
+    out = tmp_path / "heads"
+    ranks = W.run_world(4, out, "heads")
+    names, shape = W.HEADS_MESH
+    for arch in W.HEADS_ARCHS:
+        cfg = get_reduced(arch)
+        assert cfg.n_kv % shape[1] and (cfg.n_kv * cfg.resolved_head_dim
+                                        ) % shape[1] == 0
+        W.judge(out, ranks, W.case_key(arch, shape), cfg,
+                dict(zip(names, shape)), W.one_device(cfg, out, False))
+
+
+def test_a_moe_checkpoint_restores_onto_more_and_fewer_ranks(tmp_path):
+    out = tmp_path / "moe"
+    restored = []
+    for case, pairs in W.MOE_RESTORE.items():
+        world = 4 if case == "moe4" else 2
+        W.run_world(world, out, case)
+        restored += [(saved_on, shape, world) for saved_on, shape in pairs
+                     if saved_on is not None]
+    assert len(restored) == 2
+    for saved_on, shape, world in restored:
+        saved = np.load(out / f"saved_{W._shape_tag(saved_on)}.npz")
+        assert int(saved["step"]) == 1
+        for r in range(world):
+            got = np.load(out / f"restored_{W._shape_tag(saved_on)}_"
+                                f"{W._shape_tag(shape)}.rank{r}.npz")
+            assert set(got.files) == set(saved.files)
+            for k in saved.files:
+                assert np.array_equal(got[k], saved[k]), (saved_on, shape,
+                                                          r, k)
 
 
 def _quantized(g: np.ndarray) -> np.ndarray:
